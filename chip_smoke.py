@@ -31,8 +31,34 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
 6. a ``torch.profiler`` breakdown of the fused adagrad step: device time,
    idle share and the kernels that take the most device time.
 
-Prints the ``kernels`` JSON line, a ``slice`` JSON line, and last
-``{"ok": true, "device": {...}}``. Full details go to
+The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
+heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
+``torch.Generator``):
+
+7. K4 and K5 against their plain versions on the card at full-width shapes
+   (24 q-heads over 8 kv-heads, D=128) in variants: f32 and bf16; causal,
+   windowed, softcapped; a sequence that is no multiple of the tile;
+   ``q_offset > 0``; rows with no valid key; for K5 the engine's bf16 q
+   over an f32 cache, a bf16 cache, ``-1`` slots and a wrapped ring. Within
+   ATTN_TOL.
+8. ``forward_lm`` logits against ``prefill_into_cache`` logits for one
+   32-token prompt at full width (28 layers, bf16): rel < FWD_DEC_REL_BF16.
+   K4 counted over the forward (counts reset just before it, read just
+   after). Then a ``torch.profiler`` window of 8 decode steps of the
+   engine's shape (batch 1, f32 cache of 128 slots).
+9. card against CPU: full width cut to 2 layers, f32, one weight set;
+   ``forward_lm`` and 8 decode steps within CARD_CPU_REL.
+10. serving through ``repro_torch.launch.serve``: ``--arch llama3.2-3b
+    --full --requests 8 --slots 4 --max-new 16``; every request finishes
+    with 16 tokens; K5 counted over the run.
+11. K4 (B=1, S=2048, causal, bf16) and K5 (B=1, L=2048 and B=8, L=4096,
+    the engine's bf16 q over an f32 cache) timed as in phase 5, with their
+    plain versions, ``F.scaled_dot_product_attention`` on the same inputs
+    (a yardstick the port never calls) and their bounds: flops at the bf16
+    tensor-core peak for K4, bytes at 3.35 TB/s for K5.
+
+Prints the ``kernels`` JSON line (K1-K5), ``slice`` and ``lm`` JSON lines,
+and last ``{"ok": true, "device": {...}}``. Full details go to
 ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -53,8 +79,14 @@ K1_ULP = 2            # K1 vs plain, sum/mean (both are unfused, same order)
 PARAM_ULP = 64        # K2/K3 vs plain, params (the bounds of the
 MOMENT_ULP = 4        # reference's fused-update tests), moments
 LOSS_ATOL = 1e-4      # card vs CPU loss, 3 full-width steps
+# K4/K5 vs plain: both compute in f32 in other orders; a bf16 output may
+# round one step the other way (2 steps of 2^-8 at magnitudes up to ~2)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+FWD_DEC_REL_BF16 = 5e-2       # full-width bf16 forward vs decode logits
+CARD_CPU_REL = 1e-4           # f32 logits, card vs CPU, 2 full-width layers
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published peak at 700 W
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
 TIMING_ITERS = 50
 SPIN_CYCLES = 50_000_000      # ~25 ms of a spinning kernel at ~2 GHz
 
@@ -114,9 +146,9 @@ def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     return times[len(times) // 2]
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, flop_per_s=F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -582,6 +614,399 @@ def phase_profile(report, dev, run, n_steps=10):
     return info
 
 
+# ---------------------------------------------------------------------------
+# the LM slice: llama3.2-3b serving, K4 and K5
+# ---------------------------------------------------------------------------
+LM_ARCH = "llama3.2-3b"
+LM_SEED = 0
+
+
+def _lm_cfg(**overrides):
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(LM_ARCH), **overrides)
+
+
+def _randn(gen, shape, dtype, dev):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(getattr(
+        torch, dtype))
+
+
+def _attn_err(tag, got, want, dtype):
+    """Max abs difference; fails past ATTN_TOL (absolute and relative)."""
+    import torch
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{tag}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    g, w = got.float(), want.float()
+    tol = ATTN_TOL[dtype]
+    excess = float(((g - w).abs() - (tol + tol * w.abs())).max())
+    err = float((g - w).abs().max())
+    check(excess <= 0, f"{tag}: max abs diff {err:.3g} beyond the {tol} "
+          "bound (abs + rel)")
+    return err
+
+
+def _cache_pos(kind, B, L, dev):
+    """cache_pos (B, L) int32 and pos (B,) for a cache layout."""
+    import torch
+    slots = torch.arange(L, dtype=torch.int32, device=dev)
+    if kind == "full":
+        cp, pos = slots.expand(B, L), torch.full((B,), L - 1)
+    elif kind == "padded":              # 1000 written slots, the rest -1
+        cp = torch.where(slots < 1000, slots, -1).expand(B, L)
+        pos = torch.full((B,), 999)
+    elif kind == "ring":                # row 0 wrapped, row 1 still filling
+        wrapped = torch.where(slots < 100, slots + L, slots)
+        filling = torch.where(slots < 300, slots, -1)
+        cp = torch.stack([wrapped, filling])
+        pos = torch.tensor([L + 99, 299])
+    elif kind == "empty-row":           # row 1 holds nothing valid
+        cp = torch.stack([slots, torch.full_like(slots, -1)])
+        pos = torch.tensor([L - 1, L - 1])
+    else:
+        raise ValueError(kind)
+    return (cp.to(torch.int32).contiguous(),
+            pos.to(device=dev, dtype=torch.int32))
+
+
+def phase_lm_kernels(report, dev):
+    """K4 and K5 against their plain versions on the card, full-width
+    shapes (24 q-heads over 8 kv-heads, D=128)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Hq, Hkv, D = 24, 8, 128
+    k4 = [  # dtype, Sq, Skv, causal, window, softcap, q_offset
+        ("float32", 2048, 2048, True, None, 0.0, 0),
+        ("bfloat16", 2048, 2048, True, None, 0.0, 0),
+        ("bfloat16", 2048, 2048, True, 512, 0.0, 0),
+        ("float32", 1024, 1024, False, None, 30.0, 0),
+        ("bfloat16", 1000, 1000, True, None, 0.0, 0),       # ragged tiles
+        ("float32", 256, 1280, True, 700, 0.0, 1024),       # q_offset > 0
+        ("bfloat16", 512, 64, True, 32, 0.0, 0),            # rows see no key
+    ]
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    rows = []
+    for dtype, Sq, Skv, causal, window, softcap, q_offset in k4:
+        q = _randn(gen, (1, Sq, Hq, D), dtype, dev)
+        k = _randn(gen, (1, Skv, Hkv, D), dtype, dev)
+        v = _randn(gen, (1, Skv, Hkv, D), dtype, dev)
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = f"K4 {dtype} Sq={Sq} Skv={Skv} {kw}"
+        err = _attn_err(tag, got, want, dtype)
+        if Skv == 64:
+            check(bool((got[:, 96:] == 0).all()),
+                  f"{tag}: rows with no valid key are not 0")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        rows.append({"kernel": "K4", "case": tag, "max_abs_err": err})
+    k5 = [  # q dtype, cache dtype, B, L, layout, window, softcap
+        ("bfloat16", "float32", 1, 2048, "full", None, 0.0),  # the engine
+        ("float32", "float32", 1, 2048, "padded", None, 0.0),
+        ("bfloat16", "bfloat16", 8, 4096, "full", None, 30.0),
+        ("bfloat16", "float32", 2, 512, "ring", 512, 0.0),
+        ("float32", "bfloat16", 2, 2048, "ring", 400, 0.0),
+        ("bfloat16", "float32", 2, 256, "empty-row", None, 0.0),
+    ]
+    for q_dt, c_dt, B, L, layout, window, softcap in k5:
+        q = _randn(gen, (B, 1, Hq, D), q_dt, dev)
+        kc = _randn(gen, (B, L, Hkv, D), c_dt, dev)
+        vc = _randn(gen, (B, L, Hkv, D), c_dt, dev)
+        cp, pos = _cache_pos(layout, B, L, dev)
+        kw = dict(window=window, softcap=softcap)
+        got = da.decode_attention_cuda(q, kc, vc, cp, pos, **kw)
+        want = da.decode_attention_plain(q, kc, vc, cp, pos, **kw)
+        torch.cuda.synchronize()
+        tag = f"K5 q={q_dt} cache={c_dt} B={B} L={L} {layout} {kw}"
+        err = _attn_err(tag, got, want, q_dt)
+        if layout == "empty-row":
+            check(bool((got[1] == 0).all()), f"{tag}: empty row is not 0")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        rows.append({"kernel": "K5", "case": tag, "max_abs_err": err})
+    report["lm_kernels"] = {"cases": rows, "tolerance": ATTN_TOL}
+    log(f"phase 7 K4/K5: {len(k4)} K4 and {len(k5)} K5 variants agree with "
+        f"the plain versions (max abs err K4 {errs['flash_attention']:.3g}, "
+        f"K5 {errs['decode_attention']:.3g}; bounds {ATTN_TOL})")
+    return errs
+
+
+def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
+    """``torch.profiler`` over ``n_steps`` decode steps of the engine's
+    shape (batch 1, f32 cache of ``max_len`` slots, 12 tokens in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache_lm(cfg, 1, max_len, torch.float32, dev)
+    toks = torch.arange(3, 15, dtype=torch.int32, device=dev)[None]
+    cache, _ = tf.prefill_into_cache(params, cache, toks, cfg)
+    tok = torch.full((1, 1), 7, dtype=torch.int32, device=dev)
+    for _ in range(3):                                 # warm-up
+        logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
+            int(torch.argmax(logits[0, -1]))           # the engine's sync
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        device.append((evt.key, us, evt.count))
+    busy_us = sum(us for _, us, _ in device)
+    top = sorted(device, key=lambda x: -x[1])[:8]
+    return {
+        "steps": n_steps, "cache_slots": max_len,
+        "wall_ms_per_step": wall_us / n_steps / 1e3,
+        "device_ms_per_step": busy_us / n_steps / 1e3,
+        "device_idle_share": (1 - busy_us / wall_us) if device else None,
+        "device_events_per_step": sum(c for *_, c in device) / n_steps,
+        "k5_ms_per_step": sum(us for k, us, _ in device
+                              if "decode_kernel" in k) / n_steps / 1e3,
+        "top_device_time": [
+            {"name": k[:90], "ms_per_step": us / n_steps / 1e3,
+             "calls_per_step": c / n_steps} for k, us, c in top],
+    }
+
+
+def phase_lm_forward_decode(report, dev):
+    """Full-width bf16 ``forward_lm`` against ``prefill_into_cache`` on one
+    32-token prompt (K4 counted over the forward), then the decode-step
+    profile."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import pad_vocab
+    cfg = _lm_cfg()
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, torch.Generator(device=dev).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (1, 32)).astype(np.int32)).to(dev)
+    cuda_lib.reset_launches()
+    full, _ = tf.forward_lm(params, toks, cfg)
+    torch.cuda.synchronize()
+    counts = dict(cuda_lib.LAUNCHES)
+    check(counts["flash_attention"] > 0, "K4 never launched by forward_lm")
+    cache = tf.init_cache_lm(cfg, 1, 32, torch.float32, dev)
+    _, seq = tf.prefill_into_cache(params, cache, toks, cfg)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(full).all() and torch.isfinite(seq).all()),
+          "non-finite full-width logits")
+    check(full.shape == seq.shape == (1, 32, pad_vocab(cfg.vocab_size)),
+          f"logits shapes {tuple(full.shape)} / {tuple(seq.shape)}")
+    rel = float((full.float() - seq.float()).abs().max()
+                / full.float().abs().max())
+    agree = float((full.argmax(-1) == seq.argmax(-1)).float().mean())
+    check(rel < FWD_DEC_REL_BF16, f"forward vs decode rel {rel:.3g} >= "
+          f"{FWD_DEC_REL_BF16}")
+    prof = _profile_decode(params, cfg, dev)
+    del params, cache
+    torch.cuda.empty_cache()
+    info = {"init_s": init_s, "prompt": 32, "rel_max_diff": rel,
+            "rel_bound": FWD_DEC_REL_BF16, "argmax_agreement": agree,
+            "forward_launches": counts,
+            "decode_profile": prof}
+    report["lm_forward_decode"] = info
+    log(f"phase 8 forward vs decode (full width, bf16, 32 tokens): rel "
+        f"{rel:.3g} (bound {FWD_DEC_REL_BF16}), argmax agreement {agree:.3f}"
+        f"; K4 launches {counts['flash_attention']}")
+    log(f"  decode step (batch 1, 128 f32 slots): "
+        f"{prof['wall_ms_per_step']:.3f} ms wall (profiler on), "
+        f"{prof['device_ms_per_step']:.3f} ms on the device, idle share "
+        f"{prof['device_idle_share']}, K5 {prof['k5_ms_per_step']:.4f} "
+        f"ms/step, {prof['device_events_per_step']:.0f} device events/step")
+    for t in prof["top_device_time"]:
+        log(f"  {t['ms_per_step']:.4f} ms x{t['calls_per_step']:.0f} "
+            f"{t['name']}")
+    return counts, info
+
+
+def phase_lm_card_cpu(report, dev):
+    """Full width cut to 2 layers, f32: the card's logits against the CPU
+    plain path from one weight set, over ``forward_lm`` and 8 decode
+    steps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg = _lm_cfg(num_layers=2, param_dtype="float32",
+                  compute_dtype="float32")
+    cpu_params = tf.init_lm(cfg, torch.Generator().manual_seed(LM_SEED))
+    params = tf.params_to(cpu_params, dev)
+    toks = torch.from_numpy(np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab_size, (1, 32)).astype(np.int32))
+    rels = {}
+    for name in ("forward", "decode"):
+        if name == "forward":
+            got, _ = tf.forward_lm(params, toks.to(dev), cfg)
+            want, _ = tf.forward_lm(cpu_params, toks, cfg)
+        else:
+            _, got = tf.prefill_into_cache(
+                params, tf.init_cache_lm(cfg, 1, 8, torch.float32, dev),
+                toks[:, :8].to(dev), cfg)
+            _, want = tf.prefill_into_cache(
+                cpu_params, tf.init_cache_lm(cfg, 1, 8, torch.float32),
+                toks[:, :8], cfg)
+        got = got.cpu()
+        check(bool(torch.isfinite(got).all()), f"non-finite {name} logits")
+        rels[name] = float((got - want).abs().max() / want.abs().max())
+        check(rels[name] < CARD_CPU_REL, f"card vs CPU {name} logits rel "
+              f"{rels[name]:.3g} >= {CARD_CPU_REL}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    report["lm_card_cpu"] = {"layers": 2, "dtype": "float32",
+                             "rel_max_diff": rels, "rel_bound": CARD_CPU_REL}
+    log(f"phase 9 card vs CPU (full width, 2 layers, f32): rel forward "
+        f"{rels['forward']:.3g}, decode {rels['decode']:.3g} (bound "
+        f"{CARD_CPU_REL})")
+    return rels
+
+
+SERVE_ARGV = ["--arch", LM_ARCH, "--full", "--requests", "8", "--slots", "4",
+              "--max-new", "16"]
+
+
+def phase_lm_serve(report, dev):
+    """The serve launcher at full width, K5 counted over the run."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve
+    cuda_lib.reset_launches()
+    run = serve.main(SERVE_ARGV)
+    counts = dict(cuda_lib.LAUNCHES)
+    check(counts["decode_attention"] > 0, f"K5 never launched on {SERVE_ARGV}")
+    check(len(run.outputs) == 8 and all(
+        len(c.tokens) == 16 and all(0 <= t < run.cfg.vocab_size
+                                    for t in c.tokens)
+        for c in run.outputs.values()),
+        f"serving did not finish 8 requests of 16 tokens: {run.outputs}")
+    torch.cuda.empty_cache()
+    decode_steps = counts["decode_attention"] // run.cfg.num_layers
+    info = {"argv": SERVE_ARGV, "tokens": run.tokens, "seconds": run.seconds,
+            "tokens_per_s": run.tokens / run.seconds,
+            "engine_steps": run.steps, "decode_steps": decode_steps,
+            "ms_per_decode_step": run.seconds / decode_steps * 1e3,
+            "launches": counts,
+            "k5_launches_per_request": counts["decode_attention"] / 8}
+    report["lm_serve"] = info
+    log(f"phase 10 serve: {run.tokens} tokens in {run.seconds:.2f} s "
+        f"({info['tokens_per_s']:.1f} tok/s), {decode_steps} decode steps "
+        f"({info['ms_per_decode_step']:.2f} ms each, prefill included); "
+        f"launches {counts}")
+    return counts, info
+
+
+def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
+    """K4 and K5 timed at fixed serving shapes, with plain, SDPA and bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    Hq, Hkv, D = 24, 8, 128
+    out = {}
+
+    # K4: B=1, S=2048, causal, bf16
+    B, S = 1, 2048
+    q = _randn(gen, (B, S, Hq, D), "bfloat16", dev)
+    k = _randn(gen, (B, S, Hkv, D), "bfloat16", dev)
+    v = _randn(gen, (B, S, Hkv, D), "bfloat16", dev)
+    k_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                   flush)
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                   flush)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    _attn_err("SDPA yardstick vs K4", lib_out.transpose(1, 2).contiguous(),
+              fa.flash_attention_cuda(q, k, v, causal=True), "bfloat16")
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+    pairs = S * (S + 1) // 2
+    k4_flops = 4 * D * Hq * B * pairs
+    k4_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    k4_bound, k4_by = bound_ms(k4_bytes, k4_flops, BF16_FLOP_PER_S)
+    out["k4"] = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
+                 "ms": k_ms, "plain_ms": p_ms, "sdpa_ms": l_ms,
+                 "flops": k4_flops, "bytes": k4_bytes,
+                 "tflop_per_s": k4_flops / k_ms / 1e9}
+    kernels = [{
+        "name": "K4 flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": k4_counts["flash_attention"],
+        "max_abs_err": errs["flash_attention"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": l_ms,
+        "at": out["k4"]["shape"]}]
+    del q, k, v, qt, kt, vt, lib_out
+
+    # K5: the engine's bf16 q over an f32 cache, every slot valid
+    for B, L in ((1, 2048), (8, 4096)):
+        q = _randn(gen, (B, 1, Hq, D), "bfloat16", dev)
+        kc = _randn(gen, (B, L, Hkv, D), "float32", dev)
+        vc = _randn(gen, (B, L, Hkv, D), "float32", dev)
+        cp, pos = _cache_pos("full", B, L, dev)
+        k_ms = time_ms(lambda: da.decode_attention_cuda(q, kc, vc, cp, pos),
+                       flush)
+        p_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, cp, pos),
+                       flush)
+        q32 = q.float().transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = ((cp >= 0) & (cp <= pos[:, None]))[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(q32, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+        _attn_err(f"SDPA yardstick vs K5 B={B} L={L}",
+                  lib_out.transpose(1, 2).to(torch.bfloat16).contiguous(),
+                  da.decode_attention_cuda(q, kc, vc, cp, pos), "bfloat16")
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q32, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        n_valid = int(((cp >= 0) & (cp <= pos[:, None])).sum())
+        k5_bytes = (2 * n_valid * Hkv * D * 4 + B * L * 4 + B * 4
+                    + 2 * B * Hq * D * 2)
+        k5_flops = 4 * n_valid * Hq * D
+        k5_bound, k5_by = bound_ms(k5_bytes, k5_flops)
+        tag = f"B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} q bf16, cache f32"
+        out[f"k5_B{B}_L{L}"] = {
+            "shape": tag, "ms": k_ms, "plain_ms": p_ms, "sdpa_ms": l_ms,
+            "bytes": k5_bytes, "bound_ms": k5_bound, "bound_by": k5_by,
+            "tb_per_s": k5_bytes / k_ms / 1e9}
+        if B == 1:
+            kernels.append({
+                "name": "K5 decode_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:23",
+                "launches": k5_counts["decode_attention"],
+                "max_abs_err": errs["decode_attention"], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": k5_bound, "bound_by": k5_by,
+                "library_ms": l_ms, "at": tag})
+        del q, kc, vc, kt, vt, q32, lib_out
+    report["lm_timing"] = out
+    log(f"phase 11 timing: K4 {out['k4']['ms']:.4f} ms (plain "
+        f"{out['k4']['plain_ms']:.3f}, SDPA {out['k4']['sdpa_ms']:.4f}, "
+        f"bound {k4_bound:.4f} by {k4_by}); K5 B=1 L=2048 "
+        f"{out['k5_B1_L2048']['ms']:.4f} ms (SDPA "
+        f"{out['k5_B1_L2048']['sdpa_ms']:.4f}, bound "
+        f"{out['k5_B1_L2048']['bound_ms']:.4f}); K5 B=8 L=4096 "
+        f"{out['k5_B8_L4096']['ms']:.4f} ms (SDPA "
+        f"{out['k5_B8_L4096']['sdpa_ms']:.4f}, bound "
+        f"{out['k5_B8_L4096']['bound_ms']:.4f})")
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -614,6 +1039,17 @@ def main() -> int:
         run, c_main, c_adam, slice_info = phase_slice(report, dev)
         kernels = phase_timing(report, dev, run, c_main, c_adam, errs)
         slice_info["profile"] = phase_profile(report, dev, run)
+        del run
+        torch.cuda.empty_cache()
+        lm_errs = phase_lm_kernels(report, dev)
+        k4_counts, fwd = phase_lm_forward_decode(report, dev)
+        card_cpu = phase_lm_card_cpu(report, dev)
+        k5_counts, served = phase_lm_serve(report, dev)
+        kernels += phase_lm_timing(report, dev, k4_counts, k5_counts,
+                                   lm_errs)
+        lm_info = {"arch": LM_ARCH, "forward_vs_decode_rel": fwd[
+            "rel_max_diff"], "card_vs_cpu_rel": card_cpu, "serve": served,
+            "decode_profile": fwd["decode_profile"]}
     except SmokeFailure as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -625,6 +1061,7 @@ def main() -> int:
             json.dumps(report, indent=1, default=str))
     log(f"card: {smi}; total {report['seconds']:.1f} s")
     print(json.dumps({"slice": slice_info}))
+    print(json.dumps({"lm": lm_info}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""PyTorch/CUDA port of the DLRM training path of ``repro``.
+"""PyTorch/CUDA port of ``repro``: the DLRM training path and dense-LM serving.
 
 The package mirrors ``repro``'s module layout (``configs``, ``data``,
-``sharding``, ``kernels``, ``models``, ``train``, ``launch``) so each module
-has one counterpart there. It imports ``torch`` and never JAX, and it keeps
-its own copies of what it needs from ``repro``.
+``sharding``, ``kernels``, ``models``, ``train``, ``serve``, ``launch``) so
+each module has one counterpart there. It imports ``torch`` and never JAX,
+and it keeps its own copies of what it needs from ``repro``.
 
-Kernels: the three Pallas kernels on the DLRM training step are hand-written
+Kernels: the five Pallas kernels of ``repro`` (K1-K3 on the DLRM training
+step, K4/K5 flash and decode attention on the LM path) are hand-written
 CUDA C++ for ``sm_90a`` under ``csrc/``, built on first use into ``build/``
 at the repository root and bound through ``ctypes``
 (``kernels/cuda_lib.py``). Every kernel has a plain PyTorch version in the

@@ -32,6 +32,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_embedding_bag": 0,     # K1
     "adagrad_row_update": 0,      # K2
     "adam_row_update": 0,         # K3
+    "flash_attention": 0,         # K4
+    "decode_attention": 0,        # K5
 }
 
 _VP = ctypes.c_void_p
@@ -46,6 +48,12 @@ _SIGNATURES = {
     "repro_adam_rows_f32":
         [_VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _LL, _F, _F, _F, _F, _F, _F,
          _F, _VP],
+    "repro_flash_attention":
+        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+         _VP],
+    "repro_decode_attention":
+        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+         _I, _VP],
 }
 
 _loaded: List[ctypes.CDLL] = []

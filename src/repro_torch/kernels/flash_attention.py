@@ -1,0 +1,156 @@
+"""K4: block-wise flash attention (causal / sliding-window / GQA / softcap).
+
+Port of ``repro/kernels/flash_attention.py``. Forward only, as there: the
+reference trains LMs through the chunked path, not through this kernel.
+
+* CUDA tensors launch K4 (``csrc/flash_attention.cu``): one thread block
+  per (q block, q head, batch row) walks the reachable k blocks with running
+  f32 ``m``/``l``/``acc``, K and V tiles staged in shared memory.
+* CPU tensors run the plain version ``flash_attention_plain``, which follows
+  the Pallas body step by step on the same block sizes: f32 scores, the
+  softcap, the ``kpos < kv_len`` / causal / window masks, the running
+  rescale, ``l`` clamped to 1e-30 (a fully masked row gives 0), and tiles
+  that no query of the block can reach skipped.
+
+Unlike the Pallas wrapper, both take ``q_offset`` (the absolute position of
+the first query) and apply it as ``models/attention.chunked_attention``
+does; the reference's ``ops.flash_attention`` drops it on its Pallas route.
+Layout is the model's (B, S, H, D); q-head ``h`` reads kv-head ``h // G``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.common import MASK_VALUE as NEG_INF
+
+BLOCK_Q = 64          # the CUDA kernel's tile: 64 queries x 64 keys
+BLOCK_K = 64
+MAX_HEAD_DIM = 128
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None, softcap: float = 0.0,
+                          q_offset: int = 0, block_q: int = BLOCK_Q,
+                          block_k: int = BLOCK_K) -> torch.Tensor:
+    """Plain version of K4: q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) ->
+    (B, Sq, Hq, D) in q's dtype, computed in f32."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = D ** -0.5
+    qt = q.permute(0, 2, 1, 3).float()                     # (B, Hq, Sq, D)
+    kt = k.permute(0, 2, 1, 3).float().repeat_interleave(G, dim=1)
+    vt = v.permute(0, 2, 1, 3).float().repeat_interleave(G, dim=1)
+    out = torch.zeros((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    for q_start in range(0, Sq, block_q):
+        qb = qt[:, :, q_start:q_start + block_q]
+        n_q = qb.shape[2]
+        q_abs = q_offset + q_start                         # first query's position
+        qpos = q_abs + torch.arange(n_q, device=q.device)
+        m = torch.full((B, Hq, n_q, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hq, n_q, 1), device=q.device)
+        acc = torch.zeros((B, Hq, n_q, D), device=q.device)
+        for k_start in range(0, Skv, block_k):
+            # block-level reachability guard: skip fully masked tiles
+            if causal and k_start > q_abs + block_q - 1:
+                continue
+            if window is not None and \
+                    k_start + block_k - 1 < q_abs - window + 1:
+                continue
+            kb = kt[:, :, k_start:k_start + block_k]
+            vb = vt[:, :, k_start:k_start + block_k]
+            kpos = k_start + torch.arange(kb.shape[2], device=q.device)
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            # keys past kv_len do not exist here (no padding), so the
+            # reference's kpos < kv_len mask is always true
+            mask = torch.ones((n_q, kb.shape[2]), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kpos[None, :]) < window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p, vb)
+            m = m_new
+        out[:, :, q_start:q_start + n_q] = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _check(q, k, v, q_offset: int) -> None:
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention: q must be a CUDA tensor, got "
+                         f"{q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention: dtype {q.dtype} (float32 or "
+                         "bfloat16)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype or t.dim() != 4 \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"4-d {q.dtype} tensor on {q.device}")
+    B, Sq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or Hq % k.shape[2]:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {D} > {MAX_HEAD_DIM}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None, softcap: float = 0.0,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Launch K4 on CUDA tensors (raises on anything else).
+
+    Replaces the TPU kernel ``_flash_kernel`` of
+    ``repro/kernels/flash_attention.py``. Bound by operations: 4·D flops
+    per reachable (query, key) pair and q-head against a few bytes per
+    element of q, k, v and o. This first version runs the products on the
+    f32 cores (64 x 64 tiles, one 4 x 4 score and 4 x 8 output micro-tile
+    per thread), not on the tensor cores.
+    """
+    _check(q, k, v, q_offset)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.load()
+    status = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
+        Hq, Hkv, D, q_offset, int(causal), -1 if window is None else window,
+        float(softcap), D ** -0.5, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(status, "flash_attention")
+    cuda_lib.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    K4 on CUDA tensors, the plain version on CPU tensors.
+    """
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    if q.is_cuda:
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), **kw)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, **kw)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -1,14 +1,17 @@
-"""Public kernel entry points of the DLRM training path.
+"""Public kernel entry points: the DLRM training path and LM attention.
 
-Port of ``fused_embedding_bag``, ``sparse_row_grads`` and
-``fused_row_update`` of ``repro/kernels/ops.py``. There is no
-implementation switch: each call dispatches by the device of its tensors.
-CUDA tensors launch the hand-written kernels (K1 for the embedding bag,
-K2/K3 for the row updates); CPU tensors run their plain PyTorch versions.
-A CUDA tensor never reaches a plain version.
+Port of ``fused_embedding_bag``, ``sparse_row_grads``, ``fused_row_update``,
+``flash_attention`` and ``decode_attention`` of ``repro/kernels/ops.py``.
+There is no implementation switch: each call dispatches by the device of
+its tensors. CUDA tensors launch the hand-written kernels (K1 for the
+embedding bag, K2/K3 for the row updates, K4 for full-sequence attention,
+K5 for cache attention); CPU tensors run their plain PyTorch versions. A
+CUDA tensor never reaches a plain version.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_embedding as fe
 from repro_torch.kernels import fused_update as fu
 
@@ -48,3 +51,19 @@ def fused_row_update(params, rows, vals, *state, kind, **hyper):
         m, v = state
         return fu.adam_row_update(params, m, v, rows, vals, **hyper)
     raise ValueError(f"unknown row-update kind: {kind!r}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,
+                    q_offset=0):
+    """Full-sequence attention. q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) ->
+    (B, Sq, Hq, D); query ``i`` sits at position ``q_offset + i``."""
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cache_pos, pos, *, window=None,
+                     softcap=0.0):
+    """One-token attention over a KV cache. q (B, 1, Hq, D); caches
+    (B, L, Hkv, D); cache_pos (B, L) (-1 = empty); pos (B,)."""
+    return da.decode_attention(q, k_cache, v_cache, cache_pos, pos,
+                               window=window, softcap=softcap)

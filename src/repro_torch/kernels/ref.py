@@ -1,9 +1,14 @@
-"""Plain autodiff oracle of the fused embedding bag (tests only)."""
+"""Plain oracles (tests only): the fused embedding bag and naive attention.
+
+Twins of ``repro/kernels/ref.py``.
+"""
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.kernels.common import MASK_VALUE
 
 
 def fused_embedding_bag_ref(pool, indices, weights=None, *,
@@ -30,3 +35,46 @@ def fused_embedding_bag_ref(pool, indices, weights=None, *,
     if combiner == "max":
         return gathered.amax(dim=2)
     raise ValueError(combiner)
+
+
+def attention_ref(q, k, v, *, causal=True, window: Optional[int] = None,
+                  softcap: float = 0.0, q_offset: int = 0):
+    """Naive quadratic attention in f32. q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (D ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    dpos = qpos[:, None] - kpos[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= dpos >= 0
+    if window is not None:
+        mask &= dpos < window
+    s = torch.where(mask[None, None, None], s, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, cache_pos, pos, *,
+                         window: Optional[int] = None, softcap: float = 0.0):
+    """q (B,1,Hq,D); caches (B,L,Hkv,D); cache_pos (B,L); pos (B,)."""
+    B, L, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * (D ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window is not None:
+        valid &= cache_pos > (pos[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, Hq, D).to(q.dtype)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1–K3 against their plain versions, on the card.
+"""The CUDA kernels K1–K5 against their plain versions, on the card.
 
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with one, run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -11,6 +11,11 @@ intrinsics in the plain versions' order, but PyTorch's CPU ``sqrt``
 (vectorised) is not always correctly rounded, so the CPU result may sit an
 ULP away. Rows the update does not touch stay bit-identical. A reduced
 train step on the card matches the CPU within 2e-5 and is deterministic.
+
+K4 and K5 agree with their plain versions within 2e-5 in f32 and 1.6e-2
+(two bf16 steps) in bf16: both compute in f32, in other summation orders.
+The reduced LM's logits on the card match the CPU's within 1e-4, and the
+serving engine gives the CPU's greedy tokens.
 """
 import dataclasses
 
@@ -23,10 +28,17 @@ from _torch_parity import assert_ulp_close  # noqa: E402  (sets torch threads)
 from repro_torch.configs import dlrm_models as tcfg  # noqa: E402
 from repro_torch.configs.registry import get_dlrm  # noqa: E402
 from repro_torch.data.synthetic import criteo_batch  # noqa: E402
+from repro_torch.configs.base import reduce_config  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_embedding as fe  # noqa: E402
 from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.sharding import policy as tpol  # noqa: E402
 from repro_torch.train import optim, trainer  # noqa: E402
 
@@ -171,3 +183,118 @@ def test_reduced_step_on_card_matches_cpu_and_is_deterministic(dev, opt_name):
     assert gpu2 == gpu
     for k in ("tables", "wide"):
         assert torch.equal(s1["params"][k], s2["params"][k])
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+
+
+def _attn_close(got, want, dtype, msg=""):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype],
+                               err_msg=msg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,G,D,causal,window,softcap,q_offset", [
+    (128, 128, 3, 128, True, None, 0.0, 0),
+    (100, 100, 2, 64, True, 32, 0.0, 0),       # ragged blocks + window
+    (77, 77, 1, 16, False, None, 20.0, 0),     # non-causal, softcap
+    (40, 104, 4, 32, True, 24, 0.0, 64),       # q_offset after a prefix
+    (64, 8, 2, 16, True, 4, 0.0, 0),           # rows with no valid key
+])
+def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
+                          q_offset, dtype):
+    rng = np.random.default_rng(Sq + Skv)
+    B, Hkv = 2, 2
+    q = torch.from_numpy(rng.standard_normal((B, Sq, Hkv * G, D))
+                         .astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))
+                             .astype(np.float32)).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    cuda_lib.reset_launches()
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    _attn_close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, "cpu")
+    _attn_close(got, fa.flash_attention_plain(q.to(dev), k.to(dev),
+                                              v.to(dev), **kw), dtype, "card")
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("L,G,D,window,softcap,layout", [
+    (128, 3, 128, None, 0.0, "full"),
+    (300, 4, 64, None, 0.0, "padded"),          # -1 slots past the prompt
+    (48, 2, 32, 16, 5.0, "ring"),               # wrapped ring + window
+    (16, 8, 16, None, 0.0, "empty-row"),        # a row with no valid slot
+])
+def test_k5_matches_plain(dev, L, G, D, window, softcap, layout, q_dtype,
+                          c_dtype):
+    rng = np.random.default_rng(L + G)
+    B, Hkv = 3, 2
+    q = torch.from_numpy(rng.standard_normal((B, 1, Hkv * G, D))
+                         .astype(np.float32)).to(q_dtype)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, L, Hkv, D))
+                               .astype(np.float32)).to(c_dtype)
+              for _ in range(2))
+    slots = np.arange(L)
+    if layout == "ring":
+        cache_pos = np.where(slots < 10, slots + L, slots)
+        pos = np.full((B,), L + 9)
+    else:
+        n_valid = L if layout == "full" else L // 3
+        cache_pos = np.where(slots < n_valid, slots, -1)
+        pos = np.full((B,), n_valid - 1)
+    cache_pos = np.broadcast_to(cache_pos, (B, L)).astype(np.int32).copy()
+    if layout == "empty-row":
+        cache_pos[1] = -1
+    cp = torch.from_numpy(cache_pos)
+    pos = torch.from_numpy(pos.astype(np.int32))
+    kw = dict(window=window, softcap=softcap)
+    cuda_lib.reset_launches()
+    got = da.decode_attention(q.to(dev), kc.to(dev), vc.to(dev), cp.to(dev),
+                              pos.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["decode_attention"] == 1
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    want = da.decode_attention_plain(q, kc, vc, cp, pos, **kw)
+    _attn_close(got, want, q_dtype, "cpu")
+    if layout == "empty-row":
+        assert torch.equal(got[1].cpu(), torch.zeros_like(want[1]))
+
+
+def _lm_cfg():
+    return reduce_config(get_arch("llama3.2-3b"))
+
+
+def test_reduced_lm_on_card_matches_cpu(dev):
+    cfg = _lm_cfg()
+    params = tf.init_lm(cfg, torch.Generator().manual_seed(0))
+    gparams = tf.params_to(params, dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    cuda_lib.reset_launches()
+    got, _ = tf.forward_lm(gparams, toks.to(dev), cfg)
+    assert cuda_lib.LAUNCHES["flash_attention"] == cfg.num_layers
+    want, _ = tf.forward_lm(params, toks, cfg)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    cache = tf.init_cache_lm(cfg, 2, 24, torch.float32, dev)
+    _, seq = tf.prefill_into_cache(gparams, cache, toks.to(dev), cfg)
+    assert cuda_lib.LAUNCHES["decode_attention"] == 24 * cfg.num_layers
+    rel = float((seq.cpu() - want).abs().max() / want.abs().max())
+    assert rel < 2e-4, rel
+
+    def serve(p):
+        eng = serve_engine.ServeEngine(build_model(cfg), p, slots=2,
+                                       max_len=16)
+        for r in range(3):
+            eng.submit(serve_engine.Request(r, np.arange(5) + r, 6))
+        return {r: c.tokens for r, c in eng.run().items()}
+
+    assert serve(gparams) == serve(params)

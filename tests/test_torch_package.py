@@ -20,6 +20,8 @@ torch = pytest.importorskip("torch")
 
 import _torch_parity  # noqa: E402,F401  (sets torch threads)
 from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_embedding as fe  # noqa: E402
 from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
@@ -115,6 +117,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                           wd=0.0)
 
 
+def test_attention_wrappers_refuse_cpu_tensors():
+    q = torch.zeros((1, 4, 2, 16))
+    kv = torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(q[:, :1], kv, kv,
+                                 torch.zeros((1, 4), dtype=torch.int32),
+                                 torch.zeros((1,), dtype=torch.int32))
+
+
 def test_cpu_dispatch_takes_the_plain_versions_and_counts_nothing():
     cuda_lib.reset_launches()
     pool = torch.randn((8, 4), generator=torch.Generator().manual_seed(0))
@@ -141,4 +154,5 @@ def test_library_path_tracks_the_sources():
     assert path.parent == cuda_lib.BUILD_DIR
     assert path.name.startswith("librepro_torch_kernels-")
     srcs = {p.name for p in cuda_lib.CSRC_DIR.glob("*.cu")}
-    assert srcs == {"fused_embedding.cu", "fused_update.cu"}
+    assert srcs == {"fused_embedding.cu", "fused_update.cu",
+                    "flash_attention.cu", "decode_attention.cu"}
