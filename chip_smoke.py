@@ -79,9 +79,13 @@ K1_ULP = 2            # K1 vs plain, sum/mean (both are unfused, same order)
 PARAM_ULP = 64        # K2/K3 vs plain, params (the bounds of the
 MOMENT_ULP = 4        # reference's fused-update tests), moments
 LOSS_ATOL = 1e-4      # card vs CPU loss, 3 full-width steps
-# K4/K5 vs plain: both compute in f32 in other orders; a bf16 output may
-# round one step the other way (2 steps of 2^-8 at magnitudes up to ~2)
-ATTN_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+# K4/K5 vs plain, (abs, rel) of the plain output: both compute in f32 in
+# other orders, so a bf16 output may round one bf16 step (at most 2^-7 of
+# its magnitude) the other way, and no further
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 8e-3)}
+# SDPA, the yardstick the port never calls, is held to its own bound: in
+# bf16 it rounds the probabilities to bf16 before the PV product
+SDPA_TOL = (1.6e-2, 1.6e-2)
 FWD_DEC_REL_BF16 = 5e-2       # full-width bf16 forward vs decode logits
 CARD_CPU_REL = 1e-4           # f32 logits, card vs CPU, 2 full-width layers
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published peak at 700 W
@@ -551,6 +555,32 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
     return kernels
 
 
+def _device_summary(prof, wall_us, n_steps, top):
+    """Per-step device time, idle share and the ``top`` kernels by device
+    time from a ``torch.profiler`` run of ``n_steps`` steps that took
+    ``wall_us``; also returns the (name, us, calls) device events."""
+    import torch
+    device = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        device.append((evt.key, us, evt.count))
+    busy_us = sum(us for _, us, _ in device)
+    ranked = sorted(device, key=lambda x: -x[1])[:top]
+    return {
+        "steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
+        "device_ms_per_step": busy_us / n_steps / 1e3,
+        "device_idle_share": (1 - busy_us / wall_us) if device else None,
+        "device_events_per_step": sum(c for *_, c in device) / n_steps,
+        "top_device_time": [
+            {"name": k[:90], "ms_per_step": us / n_steps / 1e3,
+             "calls_per_step": c / n_steps} for k, us, c in ranked],
+    }, device
+
+
 def phase_profile(report, dev, run, n_steps=10):
     """Where the fused adagrad step's time goes: ``torch.profiler`` over
     ``n_steps`` steps with batches already on the card. Device time is the
@@ -578,28 +608,10 @@ def phase_profile(report, dev, run, n_steps=10):
             state, _ = step(state, batches[i % len(batches)])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        device.append((evt.key, us, evt.count))
-    busy_us = sum(us for _, us, _ in device)
-    top = sorted(device, key=lambda x: -x[1])[:10]
+    info, device = _device_summary(prof, wall_us, n_steps, top=10)
     ours = {name: [us / max(c, 1) for k, us, c in device if name in k]
             for name in ("fused_embedding_bag_kernel", "adagrad_rows_kernel")}
-    info = {
-        "kernel_us_per_call": {k: v for k, v in ours.items() if v},
-        "steps": n_steps, "wall_ms_per_step": wall_us / n_steps / 1e3,
-        "device_ms_per_step": busy_us / n_steps / 1e3,
-        "device_idle_share": (1 - busy_us / wall_us) if device else None,
-        "device_events_per_step": sum(c for *_, c in device) / n_steps,
-        "top_device_time": [
-            {"name": k[:90], "ms_per_step": us / n_steps / 1e3,
-             "calls_per_step": c / n_steps} for k, us, c in top],
-    }
+    info["kernel_us_per_call"] = {k: v for k, v in ours.items() if v}
     report["profile"] = info
     if not device:
         log("phase 6 profile: torch.profiler showed no device events")
@@ -632,19 +644,20 @@ def _randn(gen, shape, dtype, dev):
         torch, dtype))
 
 
-def _attn_err(tag, got, want, dtype):
-    """Max abs difference; fails past ATTN_TOL (absolute and relative)."""
+def _attn_err(tag, got, want, tol):
+    """Max abs difference; fails where ``|got - want|`` passes
+    ``atol + rtol * |want|`` for ``tol = (atol, rtol)``."""
     import torch
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{tag}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
           f"{tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
     g, w = got.float(), want.float()
-    tol = ATTN_TOL[dtype]
-    excess = float(((g - w).abs() - (tol + tol * w.abs())).max())
+    atol, rtol = tol
+    excess = float(((g - w).abs() - (atol + rtol * w.abs())).max())
     err = float((g - w).abs().max())
-    check(excess <= 0, f"{tag}: max abs diff {err:.3g} beyond the {tol} "
-          "bound (abs + rel)")
+    check(excess <= 0, f"{tag}: max abs diff {err:.3g} beyond the "
+          f"(abs, rel) bound {tol}")
     return err
 
 
@@ -685,8 +698,10 @@ def phase_lm_kernels(report, dev):
         ("bfloat16", 2048, 2048, True, 512, 0.0, 0),
         ("float32", 1024, 1024, False, None, 30.0, 0),
         ("bfloat16", 1000, 1000, True, None, 0.0, 0),       # ragged tiles
+        ("float32", 1000, 1000, True, None, 0.0, 0),
         ("float32", 256, 1280, True, 700, 0.0, 1024),       # q_offset > 0
         ("bfloat16", 512, 64, True, 32, 0.0, 0),            # rows see no key
+        ("float32", 512, 64, True, 32, 0.0, 0),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     rows = []
@@ -700,7 +715,7 @@ def phase_lm_kernels(report, dev):
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         tag = f"K4 {dtype} Sq={Sq} Skv={Skv} {kw}"
-        err = _attn_err(tag, got, want, dtype)
+        err = _attn_err(tag, got, want, ATTN_TOL[dtype])
         if Skv == 64:
             check(bool((got[:, 96:] == 0).all()),
                   f"{tag}: rows with no valid key are not 0")
@@ -708,6 +723,7 @@ def phase_lm_kernels(report, dev):
         rows.append({"kernel": "K4", "case": tag, "max_abs_err": err})
     k5 = [  # q dtype, cache dtype, B, L, layout, window, softcap
         ("bfloat16", "float32", 1, 2048, "full", None, 0.0),  # the engine
+        ("float32", "float32", 1, 2048, "full", None, 0.0),
         ("float32", "float32", 1, 2048, "padded", None, 0.0),
         ("bfloat16", "bfloat16", 8, 4096, "full", None, 30.0),
         ("bfloat16", "float32", 2, 512, "ring", 512, 0.0),
@@ -724,7 +740,7 @@ def phase_lm_kernels(report, dev):
         want = da.decode_attention_plain(q, kc, vc, cp, pos, **kw)
         torch.cuda.synchronize()
         tag = f"K5 q={q_dt} cache={c_dt} B={B} L={L} {layout} {kw}"
-        err = _attn_err(tag, got, want, q_dt)
+        err = _attn_err(tag, got, want, ATTN_TOL[q_dt])
         if layout == "empty-row":
             check(bool((got[1] == 0).all()), f"{tag}: empty row is not 0")
         errs["decode_attention"] = max(errs["decode_attention"], err)
@@ -756,28 +772,11 @@ def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
             logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
             int(torch.argmax(logits[0, -1]))           # the engine's sync
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        device.append((evt.key, us, evt.count))
-    busy_us = sum(us for _, us, _ in device)
-    top = sorted(device, key=lambda x: -x[1])[:8]
-    return {
-        "steps": n_steps, "cache_slots": max_len,
-        "wall_ms_per_step": wall_us / n_steps / 1e3,
-        "device_ms_per_step": busy_us / n_steps / 1e3,
-        "device_idle_share": (1 - busy_us / wall_us) if device else None,
-        "device_events_per_step": sum(c for *_, c in device) / n_steps,
-        "k5_ms_per_step": sum(us for k, us, _ in device
-                              if "decode_kernel" in k) / n_steps / 1e3,
-        "top_device_time": [
-            {"name": k[:90], "ms_per_step": us / n_steps / 1e3,
-             "calls_per_step": c / n_steps} for k, us, c in top],
-    }
+    info, device = _device_summary(prof, wall_us, n_steps, top=8)
+    info["cache_slots"] = max_len
+    info["k5_ms_per_step"] = sum(us for k, us, _ in device
+                                 if "decode_kernel" in k) / n_steps / 1e3
+    return info
 
 
 def phase_lm_forward_decode(report, dev):
@@ -858,7 +857,8 @@ def phase_lm_card_cpu(report, dev):
                 params, tf.init_cache_lm(cfg, 1, 8, torch.float32, dev),
                 toks[:, :8].to(dev), cfg)
             _, want = tf.prefill_into_cache(
-                cpu_params, tf.init_cache_lm(cfg, 1, 8, torch.float32),
+                cpu_params,
+                tf.init_cache_lm(cfg, 1, 8, torch.float32, "cpu"),
                 toks[:, :8], cfg)
         got = got.cpu()
         check(bool(torch.isfinite(got).all()), f"non-finite {name} logits")
@@ -933,7 +933,7 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True)
     _attn_err("SDPA yardstick vs K4", lib_out.transpose(1, 2).contiguous(),
-              fa.flash_attention_cuda(q, k, v, causal=True), "bfloat16")
+              fa.flash_attention_cuda(q, k, v, causal=True), SDPA_TOL)
     l_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), flush)
     pairs = S * (S + 1) // 2
@@ -971,7 +971,7 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
                                                  enable_gqa=True)
         _attn_err(f"SDPA yardstick vs K5 B={B} L={L}",
                   lib_out.transpose(1, 2).to(torch.bfloat16).contiguous(),
-                  da.decode_attention_cuda(q, kc, vc, cp, pos), "bfloat16")
+                  da.decode_attention_cuda(q, kc, vc, cp, pos), SDPA_TOL)
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q32, kt, vt, attn_mask=mask, enable_gqa=True), flush)
         n_valid = int(((cp >= 0) & (cp <= pos[:, None])).sum())

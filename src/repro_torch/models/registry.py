@@ -3,7 +3,8 @@
 Port of ``repro/models/registry.py`` for the decoder-only families this
 package has ported (dense attention layers). ``init`` takes a
 ``torch.Generator`` (its device is where the params live) instead of a JAX
-key; ``init_cache`` takes the device its cache goes on.
+key; ``init_cache`` takes the dtype and the device of its cache, with no
+default: a cache goes where the caller's params are.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         loss=lambda params, batch: tf_mod.lm_loss(params, batch, cfg),
         prefill=lambda params, batch: tf_mod.forward_lm(
             params, batch["tokens"], cfg)[0],
-        init_cache=lambda batch, max_len, dtype=torch.bfloat16, device="cpu":
+        init_cache=lambda batch, max_len, dtype, device:
             tf_mod.init_cache_lm(cfg, batch, max_len, dtype, device),
         decode_step=lambda params, cache, tokens: tf_mod.decode_step_lm(
             params, cache, tokens, cfg),

@@ -335,8 +335,8 @@ def lm_loss(params: Params, batch: Mapping[str, torch.Tensor],
 # ===========================================================================
 # decode (serve step)
 # ===========================================================================
-def init_cache_lm(cfg: ModelConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+def init_cache_lm(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device) -> Dict[str, Any]:
     cache: Dict[str, Any] = {"step": 0}
     kinds = set(cfg.layer_kinds)
     if "global" in kinds:

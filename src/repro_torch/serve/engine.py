@@ -40,12 +40,11 @@ class Completion:
 
 class ServeEngine:
     def __init__(self, api: ModelAPI, params, *, slots: int = 4,
-                 max_len: int = 256, greedy: bool = True):
+                 max_len: int = 256):
         self.api = api
         self.params = params
         self.slots = slots
         self.max_len = max_len
-        self.greedy = greedy
         self.device = params["embed"].device
         self.queue: collections.deque[Request] = collections.deque()
         self.active: List[Optional[Request]] = [None] * slots

@@ -12,8 +12,9 @@ intrinsics in the plain versions' order, but PyTorch's CPU ``sqrt``
 ULP away. Rows the update does not touch stay bit-identical. A reduced
 train step on the card matches the CPU within 2e-5 and is deterministic.
 
-K4 and K5 agree with their plain versions within 2e-5 in f32 and 1.6e-2
-(two bf16 steps) in bf16: both compute in f32, in other summation orders.
+K4 and K5 agree with their plain versions within 2e-5 in f32 and, in
+bf16, within 1e-3 plus 8e-3 of the output (one bf16 step): both compute in
+f32, in other summation orders, and round once at the end.
 The reduced LM's logits on the card match the CPU's within 1e-4, and the
 serving engine gives the CPU's greedy tokens.
 """
@@ -185,14 +186,14 @@ def test_reduced_step_on_card_matches_cpu_and_is_deterministic(dev, opt_name):
         assert torch.equal(s1["params"][k], s2["params"][k])
 
 
-ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 8e-3)}
 
 
 def _attn_close(got, want, dtype, msg=""):
+    atol, rtol = ATTN_TOL[dtype]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
-                               atol=ATTN_TOL[dtype], rtol=ATTN_TOL[dtype],
-                               err_msg=msg)
+                               atol=atol, rtol=rtol, err_msg=msg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

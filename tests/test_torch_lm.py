@@ -254,7 +254,7 @@ def test_prefill_and_decode_match_reference(variant, max_len):
     jcache, want = jax.jit(functools.partial(jtf.prefill_into_cache,
                                              cfg=jcfg))(
         jparams, jcache, jnp.asarray(toks))
-    tcache = ttf.init_cache_lm(cfg, 2, max_len, torch.float32)
+    tcache = ttf.init_cache_lm(cfg, 2, max_len, torch.float32, "cpu")
     tcache, got = ttf.prefill_into_cache(tparams, tcache,
                                          torch.from_numpy(toks), cfg)
     _close(got, want, "prefill logits")
@@ -284,7 +284,8 @@ def test_port_decode_matches_port_forward(variant):
     decode reproduces the teacher-forced forward (rel < 2e-4)."""
     _, cfg, _, tparams, toks = _setup(variant)
     full, _ = ttf.forward_lm(tparams, torch.from_numpy(toks), cfg)
-    cache = ttf.init_cache_lm(cfg, 2, toks.shape[1], torch.float32)
+    cache = ttf.init_cache_lm(cfg, 2, toks.shape[1], torch.float32,
+                              "cpu")
     _, seq = ttf.prefill_into_cache(tparams, cache, torch.from_numpy(toks),
                                     cfg)
     rel = float((full - seq).abs().max() / full.abs().max())
