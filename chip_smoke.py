@@ -7,8 +7,10 @@ Run from the root of a checkout, on a machine with a CUDA card, ``nvcc``
 and PyTorch built for CUDA. It imports nothing of JAX or of ``repro``.
 Phases, each of which fails the run (exit 1, no ``ok`` line):
 
-1. build: compile K1-K3 from ``src/repro_torch/csrc`` into ``build/``;
-   print the card's name and power limit (``nvidia-smi``).
+1. build: compile K1-K5 from ``src/repro_torch/csrc`` into ``build/``;
+   print the card's name and power limit (``nvidia-smi``) and the
+   ``-Xptxas -v`` lines (registers, shared memory, spills) of the
+   redesigned K4/K5 kernels; K4's tensor-core kernel must not spill.
 2. K1 against its plain version on the card at the full Wide&Deep shapes
    (B=512, T=26, H=4, R=3,294,238, D=16 and the wide D=1), over
    sum/mean/max x weighted/unweighted x cache off/64/26*512 rows x flat/
@@ -36,26 +38,31 @@ heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
 ``torch.Generator``):
 
 7. K4 and K5 against their plain versions on the card at full-width shapes
-   (24 q-heads over 8 kv-heads, D=128) in variants: f32 and bf16; causal,
-   windowed, softcapped; a sequence that is no multiple of the tile;
-   ``q_offset > 0``; rows with no valid key; for K5 the engine's bf16 q
-   over an f32 cache, a bf16 cache, ``-1`` slots and a wrapped ring. Within
-   ATTN_TOL.
+   (24 q-heads over 8 kv-heads, D=128) in variants: f32 (K4's SIMT route)
+   and bf16 (its tensor-core route, asserted for the full-width shapes);
+   causal, windowed, softcapped; a sequence that is no multiple of the
+   tile; ``q_offset > 0``; rows with no valid key; B=2; D=64 with G=4; for
+   K5 the engine's bf16 q over an f32 cache, a bf16 cache, ``-1`` slots, a
+   wrapped ring, and caches split into several ranges (asserted at B=1,
+   L=2048), some of them with no valid slot. Within ATTN_TOL.
 8. ``forward_lm`` logits against ``prefill_into_cache`` logits for one
    32-token prompt at full width (28 layers, bf16): rel < FWD_DEC_REL_BF16.
    K4 counted over the forward (counts reset just before it, read just
    after). Then a ``torch.profiler`` window of 8 decode steps of the
-   engine's shape (batch 1, f32 cache of 128 slots).
+   engine's shape (batch 1, f32 cache of 128 slots), where K5 must run
+   unsplit: one kernel per layer and step.
 9. card against CPU: full width cut to 2 layers, f32, one weight set;
    ``forward_lm`` and 8 decode steps within CARD_CPU_REL.
 10. serving through ``repro_torch.launch.serve``: ``--arch llama3.2-3b
     --full --requests 8 --slots 4 --max-new 16``; every request finishes
     with 16 tokens; K5 counted over the run.
-11. K4 (B=1, S=2048, causal, bf16) and K5 (B=1, L=2048 and B=8, L=4096,
-    the engine's bf16 q over an f32 cache) timed as in phase 5, with their
-    plain versions, ``F.scaled_dot_product_attention`` on the same inputs
-    (a yardstick the port never calls) and their bounds: flops at the bf16
-    tensor-core peak for K4, bytes at 3.35 TB/s for K5.
+11. K4 (B=1, S=2048, causal, bf16: the tensor-core route) and K5 (B=1,
+    L=2048 and B=8, L=4096, the engine's bf16 q over an f32 cache) timed
+    as in phase 5, with their plain versions,
+    ``F.scaled_dot_product_attention`` on the same inputs (a yardstick the
+    port never calls) and their bounds: flops at the bf16 tensor-core peak
+    for K4, bytes at 3.35 TB/s for K5; K4's SIMT route timed on f32 inputs
+    of the same shape (bound: flops at the f32 peak).
 
 Prints the ``kernels`` JSON line (K1-K5), ``slice`` and ``lm`` JSON lines,
 and last ``{"ok": true, "device": {...}}``. Full details go to
@@ -182,18 +189,47 @@ def clone_state(state, device):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
+# mangled-name fragments of the redesigned kernels -> report names
+PTXAS_REPORTED = {
+    "flash_tc_kernelILi128": "K4 tensor-core D=128",
+    "flash_tc_kernelILi64": "K4 tensor-core D=64",
+    "decode_split_kernelI13__nv_bfloat16fE": "K5 split (bf16 q, f32 cache)",
+    "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
+}
+
+
+def ptxas_report(build_log):
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
+    kernels named in PTXAS_REPORTED, one string per kernel."""
+    out, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = next((name for key, name in PTXAS_REPORTED.items()
+                            if key in line), None)
+        elif current and ("spill" in line or "Used" in line):
+            out.setdefault(current, []).append(
+                line.split("info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def phase_build(report):
     from repro_torch.kernels import cuda_lib
     t0 = time.perf_counter()
     lib = cuda_lib.build()
     cuda_lib.load()
+    build_log = cuda_lib.build_log() or ""
+    ptxas = ptxas_report(build_log)
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "library": str(lib.relative_to(ROOT)),
-                       "log": cuda_lib.build_log()}
+                       "ptxas": ptxas, "log": build_log}
     log(f"phase 1 build: {lib.name} in {report['build']['seconds']:.1f} s")
-    for line in (cuda_lib.build_log() or "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    missing = set(PTXAS_REPORTED.values()) - set(ptxas)
+    check(not missing, f"no ptxas lines for {missing}")
+    for name, line in ptxas.items():
+        log(f"  ptxas {name}: {line}")
+        if name.startswith("K4"):
+            check("0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"{name} spills: {line}")
 
 
 def _full_cfg(hot_rows_k=64):
@@ -692,43 +728,56 @@ def phase_lm_kernels(report, dev):
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(5)
     Hq, Hkv, D = 24, 8, 128
-    k4 = [  # dtype, Sq, Skv, causal, window, softcap, q_offset
-        ("float32", 2048, 2048, True, None, 0.0, 0),
-        ("bfloat16", 2048, 2048, True, None, 0.0, 0),
-        ("bfloat16", 2048, 2048, True, 512, 0.0, 0),
-        ("float32", 1024, 1024, False, None, 30.0, 0),
-        ("bfloat16", 1000, 1000, True, None, 0.0, 0),       # ragged tiles
-        ("float32", 1000, 1000, True, None, 0.0, 0),
-        ("float32", 256, 1280, True, 700, 0.0, 1024),       # q_offset > 0
-        ("bfloat16", 512, 64, True, 32, 0.0, 0),            # rows see no key
-        ("float32", 512, 64, True, 32, 0.0, 0),
+    k4 = [  # dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, softcap, q_offset
+        ("float32", 1, 2048, 2048, Hq, Hkv, D, True, None, 0.0, 0),
+        ("bfloat16", 1, 2048, 2048, Hq, Hkv, D, True, None, 0.0, 0),
+        ("bfloat16", 1, 2048, 2048, Hq, Hkv, D, True, 512, 0.0, 0),
+        ("float32", 1, 1024, 1024, Hq, Hkv, D, False, None, 30.0, 0),
+        ("bfloat16", 1, 1000, 1000, Hq, Hkv, D, True, None, 0.0, 0),  # ragged
+        ("float32", 1, 1000, 1000, Hq, Hkv, D, True, None, 0.0, 0),
+        ("float32", 1, 256, 1280, Hq, Hkv, D, True, 700, 0.0, 1024),  # q_offset
+        ("bfloat16", 1, 512, 64, Hq, Hkv, D, True, 32, 0.0, 0),  # keyless rows
+        ("float32", 1, 512, 64, Hq, Hkv, D, True, 32, 0.0, 0),
+        # more of the tensor-core route
+        ("bfloat16", 2, 2048, 2048, Hq, Hkv, D, True, None, 0.0, 0),
+        ("bfloat16", 1, 1024, 1024, Hq, Hkv, D, False, None, 30.0, 0),
+        ("bfloat16", 1, 1024, 1024, 16, 4, 64, True, None, 0.0, 0),  # D=64, G=4
+        ("bfloat16", 1, 1000, 1000, Hq, Hkv, D, True, 512, 0.0, 0),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     rows = []
-    for dtype, Sq, Skv, causal, window, softcap, q_offset in k4:
-        q = _randn(gen, (1, Sq, Hq, D), dtype, dev)
-        k = _randn(gen, (1, Skv, Hkv, D), dtype, dev)
-        v = _randn(gen, (1, Skv, Hkv, D), dtype, dev)
+    for dtype, B, Sq, Skv, Hq_, Hkv_, D_, causal, window, softcap, \
+            q_offset in k4:
+        q = _randn(gen, (B, Sq, Hq_, D_), dtype, dev)
+        k = _randn(gen, (B, Skv, Hkv_, D_), dtype, dev)
+        v = _randn(gen, (B, Skv, Hkv_, D_), dtype, dev)
         kw = dict(causal=causal, window=window, softcap=softcap,
                   q_offset=q_offset)
+        route = "tensor-core" if fa.tc_route(q, k) else "simt"
+        if dtype == "bfloat16":
+            check(route == "tensor-core", f"K4 bf16 D={D_} took the SIMT route")
         got = fa.flash_attention_cuda(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        tag = f"K4 {dtype} Sq={Sq} Skv={Skv} {kw}"
+        tag = (f"K4 {route} {dtype} B={B} Sq={Sq} Skv={Skv} "
+               f"heads={Hq_}/{Hkv_} D={D_} {kw}")
         err = _attn_err(tag, got, want, ATTN_TOL[dtype])
         if Skv == 64:
             check(bool((got[:, 96:] == 0).all()),
                   f"{tag}: rows with no valid key are not 0")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        rows.append({"kernel": "K4", "case": tag, "max_abs_err": err})
+        rows.append({"kernel": "K4", "route": route, "case": tag,
+                     "max_abs_err": err})
+    check(da.split_plan(1, Hkv, 2048) > 1, "K5 does not split at B=1, L=2048")
     k5 = [  # q dtype, cache dtype, B, L, layout, window, softcap
         ("bfloat16", "float32", 1, 2048, "full", None, 0.0),  # the engine
         ("float32", "float32", 1, 2048, "full", None, 0.0),
-        ("float32", "float32", 1, 2048, "padded", None, 0.0),
+        ("float32", "float32", 1, 2048, "padded", None, 0.0),  # empty splits
         ("bfloat16", "bfloat16", 8, 4096, "full", None, 30.0),
         ("bfloat16", "float32", 2, 512, "ring", 512, 0.0),
         ("float32", "bfloat16", 2, 2048, "ring", 400, 0.0),
         ("bfloat16", "float32", 2, 256, "empty-row", None, 0.0),
+        ("bfloat16", "float32", 2, 2048, "empty-row", None, 0.0),
     ]
     for q_dt, c_dt, B, L, layout, window, softcap in k5:
         q = _randn(gen, (B, 1, Hq, D), q_dt, dev)
@@ -739,12 +788,15 @@ def phase_lm_kernels(report, dev):
         got = da.decode_attention_cuda(q, kc, vc, cp, pos, **kw)
         want = da.decode_attention_plain(q, kc, vc, cp, pos, **kw)
         torch.cuda.synchronize()
-        tag = f"K5 q={q_dt} cache={c_dt} B={B} L={L} {layout} {kw}"
+        n_split = da.split_plan(B, Hkv, L)
+        tag = (f"K5 q={q_dt} cache={c_dt} B={B} L={L} {layout} {kw} "
+               f"n_split={n_split}")
         err = _attn_err(tag, got, want, ATTN_TOL[q_dt])
         if layout == "empty-row":
             check(bool((got[1] == 0).all()), f"{tag}: empty row is not 0")
         errs["decode_attention"] = max(errs["decode_attention"], err)
-        rows.append({"kernel": "K5", "case": tag, "max_abs_err": err})
+        rows.append({"kernel": "K5", "case": tag, "n_split": n_split,
+                     "max_abs_err": err})
     report["lm_kernels"] = {"cases": rows, "tolerance": ATTN_TOL}
     log(f"phase 7 K4/K5: {len(k4)} K4 and {len(k5)} K5 variants agree with "
         f"the plain versions (max abs err K4 {errs['flash_attention']:.3g}, "
@@ -774,8 +826,14 @@ def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
         wall_us = (time.perf_counter() - t0) * 1e6
     info, device = _device_summary(prof, wall_us, n_steps, top=8)
     info["cache_slots"] = max_len
-    info["k5_ms_per_step"] = sum(us for k, us, _ in device
-                                 if "decode_kernel" in k) / n_steps / 1e3
+    k5 = [(us, c) for k, us, c in device
+          if "decode_split_kernel" in k or "decode_combine_kernel" in k]
+    info["k5_ms_per_step"] = sum(us for us, _ in k5) / n_steps / 1e3
+    info["k5_kernels_per_step"] = sum(c for _, c in k5) / n_steps
+    if device:
+        check(info["k5_kernels_per_step"] == cfg.num_layers,
+              f"K5 ran {info['k5_kernels_per_step']} kernels per decode "
+              f"step over {max_len} slots, not one per layer")
     return info
 
 
@@ -827,7 +885,8 @@ def phase_lm_forward_decode(report, dev):
         f"{prof['wall_ms_per_step']:.3f} ms wall (profiler on), "
         f"{prof['device_ms_per_step']:.3f} ms on the device, idle share "
         f"{prof['device_idle_share']}, K5 {prof['k5_ms_per_step']:.4f} "
-        f"ms/step, {prof['device_events_per_step']:.0f} device events/step")
+        f"ms/step in {prof['k5_kernels_per_step']:.0f} kernels, "
+        f"{prof['device_events_per_step']:.0f} device events/step")
     for t in prof["top_device_time"]:
         log(f"  {t['ms_per_step']:.4f} ms x{t['calls_per_step']:.0f} "
             f"{t['name']}")
@@ -920,11 +979,12 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
     Hq, Hkv, D = 24, 8, 128
     out = {}
 
-    # K4: B=1, S=2048, causal, bf16
+    # K4: B=1, S=2048, causal, bf16 (the tensor-core route)
     B, S = 1, 2048
     q = _randn(gen, (B, S, Hq, D), "bfloat16", dev)
     k = _randn(gen, (B, S, Hkv, D), "bfloat16", dev)
     v = _randn(gen, (B, S, Hkv, D), "bfloat16", dev)
+    check(fa.tc_route(q, k), "K4 bf16 D=128 took the SIMT route")
     k_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
                    flush)
     p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
@@ -940,19 +1000,32 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
     k4_flops = 4 * D * Hq * B * pairs
     k4_bytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     k4_bound, k4_by = bound_ms(k4_bytes, k4_flops, BF16_FLOP_PER_S)
+    del q, k, v, qt, kt, vt, lib_out
+    # the SIMT route on f32 inputs of the same shape
+    q, k, v = (_randn(gen, (B, S, H, D), "float32", dev)
+               for H in (Hq, Hkv, Hkv))
+    check(not fa.tc_route(q, k), "K4 f32 took the tensor-core route")
+    simt_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                      flush)
+    simt_bound, simt_by = bound_ms(2 * k4_bytes, k4_flops, F32_FLOP_PER_S)
+    del q, k, v
     out["k4"] = {"shape": f"B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
                  "ms": k_ms, "plain_ms": p_ms, "sdpa_ms": l_ms,
                  "flops": k4_flops, "bytes": k4_bytes,
-                 "tflop_per_s": k4_flops / k_ms / 1e9}
+                 "tflop_per_s": k4_flops / k_ms / 1e9,
+                 "simt_f32_ms": simt_ms, "simt_f32_bound_ms": simt_bound,
+                 "simt_f32_tflop_per_s": k4_flops / simt_ms / 1e9}
     kernels = [{
         "name": "K4 flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": k4_counts["flash_attention"],
         "max_abs_err": errs["flash_attention"], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": l_ms,
-        "at": out["k4"]["shape"]}]
-    del q, k, v, qt, kt, vt, lib_out
+        "at": out["k4"]["shape"],
+        "simt_source": "src/repro_torch/csrc/flash_attention.cu",
+        "simt_f32_ms": simt_ms, "simt_f32_bound_ms": simt_bound,
+        "simt_f32_bound_by": simt_by}]
 
     # K5: the engine's bf16 q over an f32 cache, every slot valid
     for B, L in ((1, 2048), (8, 4096)):
@@ -979,11 +1052,13 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
                     + 2 * B * Hq * D * 2)
         k5_flops = 4 * n_valid * Hq * D
         k5_bound, k5_by = bound_ms(k5_bytes, k5_flops)
-        tag = f"B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} q bf16, cache f32"
+        n_split = da.split_plan(B, Hkv, L)
+        tag = (f"B={B} L={L} Hq={Hq} Hkv={Hkv} D={D} q bf16, cache f32, "
+               f"n_split={n_split}")
         out[f"k5_B{B}_L{L}"] = {
-            "shape": tag, "ms": k_ms, "plain_ms": p_ms, "sdpa_ms": l_ms,
-            "bytes": k5_bytes, "bound_ms": k5_bound, "bound_by": k5_by,
-            "tb_per_s": k5_bytes / k_ms / 1e9}
+            "shape": tag, "n_split": n_split, "ms": k_ms, "plain_ms": p_ms,
+            "sdpa_ms": l_ms, "bytes": k5_bytes, "bound_ms": k5_bound,
+            "bound_by": k5_by, "tb_per_s": k5_bytes / k_ms / 1e9}
         if B == 1:
             kernels.append({
                 "name": "K5 decode_attention", "route": "cuda",
@@ -992,12 +1067,13 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
                 "launches": k5_counts["decode_attention"],
                 "max_abs_err": errs["decode_attention"], "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": k5_bound, "bound_by": k5_by,
-                "library_ms": l_ms, "at": tag})
+                "library_ms": l_ms, "at": tag, "n_split": n_split})
         del q, kc, vc, kt, vt, q32, lib_out
     report["lm_timing"] = out
     log(f"phase 11 timing: K4 {out['k4']['ms']:.4f} ms (plain "
         f"{out['k4']['plain_ms']:.3f}, SDPA {out['k4']['sdpa_ms']:.4f}, "
-        f"bound {k4_bound:.4f} by {k4_by}); K5 B=1 L=2048 "
+        f"bound {k4_bound:.4f} by {k4_by}; SIMT route on f32 {simt_ms:.4f} "
+        f"ms, bound {simt_bound:.4f}); K5 B=1 L=2048 "
         f"{out['k5_B1_L2048']['ms']:.4f} ms (SDPA "
         f"{out['k5_B1_L2048']['sdpa_ms']:.4f}, bound "
         f"{out['k5_B1_L2048']['bound_ms']:.4f}); K5 B=8 L=4096 "

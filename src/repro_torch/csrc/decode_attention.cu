@@ -1,4 +1,5 @@
-// K5: single-token (decode) attention over a KV cache, for Hopper (sm_90a).
+// K5: single-token (decode) attention over a KV cache, for Hopper (sm_90a),
+// split across the cache ("flash decoding") with a combine pass.
 //
 // Replaces the TPU kernel `_decode_kernel` (launched by `decode_attention`)
 // of src/repro/kernels/decode_attention.py.
@@ -13,21 +14,26 @@
 //   valid slot gives 0).
 // q is float32 or bfloat16 (the output's dtype); the caches float32 (the
 // serving engine holds them so) or bfloat16. The plain version is
-// `decode_attention_plain` in src/repro_torch/kernels/decode_attention.py.
+// `decode_attention_plain` in src/repro_torch/kernels/decode_attention.py;
+// it runs the same split and combine, from the same `split_plan`.
 //
 // Bound on this card: bytes. Every valid slot's K and V rows are read once
 // (2 x D x 4 B per kv-head in f32) for about 4 x G x D flops.
 //
-// Design: one block of 8 warps per (kv-head, batch row) takes the G
-// q-heads of that kv-head together over the whole cache, as the Pallas
-// kernel does. Lane l of a warp owns the elements d = l + 32 i of a row, so
-// a warp reads each K/V row as contiguous 128-byte segments. The warps
-// take groups of 4 slots in turn (warp w: slots 32 t + 4 w .. +3), load
-// the 4 rows before using them, reduce each dot product with shuffles and
-// keep their own running m, l and acc; no row of an invalid slot is
-// loaded. At the end the 8 partial softmaxes are merged through shared
-// memory. The grid has only B x Hkv blocks: a split over the cache across
-// blocks (flash decoding with a combine pass) is left for a later version.
+// Design: the grid is (n_split, Hkv, B). Split s of a (kv-head, batch row)
+// walks the contiguous slots [s c, s c + c), c = ceil(L / n_split), with the
+// G q-heads of that kv-head together, as the Pallas kernel does. Lane l of
+// a warp owns the row elements 4 l .. 4 l + 3 and reads them as one 16-byte
+// (f32) or 8-byte (bf16) load, so a warp reads a D=128 f32 row in one
+// 512-byte access. The 8 warps take groups of U = 8 slots in turn and load
+// the 8 rows before using them; each keeps its own running m, l and acc;
+// no row of an invalid slot is loaded. The block merges its 8 warps through
+// shared memory. With one split it writes the output; with more it writes
+// its partial m, l (B, Hkv, n_split, G) and unnormalised acc (B, Hkv,
+// n_split, G, D) in f32 to scratch, and a combine kernel, one block per
+// (kv-head, batch row), merges the splits in split order (deterministic, no
+// atomics). A split with no valid slot has m = -1e30, l = 0 and adds
+// nothing; a row with none at all gives exactly 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -40,61 +46,90 @@ using repro::from_f32;
 using repro::to_f32;
 
 constexpr int WARPS = 8;
-constexpr int U = 4;              // slots a warp loads before using them
+constexpr int U = 8;              // slots a warp loads before using them
 constexpr int MAX_G = 8;
-constexpr int MAX_DPL = 4;        // row elements per lane: D <= 128
+constexpr int VEC = 4;            // row elements per lane: D <= 4 x 32
+constexpr int COMBINE_THREADS = 256;
+
+// the 4 elements of a row a lane owns, as one vector load
+__device__ __forceinline__ void load_row4(const float* p, float (&r)[VEC]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  r[0] = x.x;
+  r[1] = x.y;
+  r[2] = x.z;
+  r[3] = x.w;
+}
+__device__ __forceinline__ void load_row4(const __nv_bfloat16* p,
+                                          float (&r)[VEC]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 a = __bfloat1622float2(pair[0]);
+  const float2 b = __bfloat1622float2(pair[1]);
+  r[0] = a.x;
+  r[1] = a.y;
+  r[2] = b.x;
+  r[3] = b.y;
+}
 
 template <typename TQ, typename TC>
-__global__ void __launch_bounds__(WARPS * 32) decode_kernel(
+__global__ void __launch_bounds__(WARPS * 32) decode_split_kernel(
     const TQ* __restrict__ q, const TC* __restrict__ kc,
     const TC* __restrict__ vc, const int* __restrict__ cache_pos,
-    const int* __restrict__ pos, TQ* __restrict__ o, int L, int Hkv, int G,
-    int D, int window, float softcap, float scale) {
+    const int* __restrict__ pos, TQ* __restrict__ o,
+    float* __restrict__ part_m, float* __restrict__ part_l,
+    float* __restrict__ part_acc, int L, int Hkv, int G, int D, int n_split,
+    int window, float softcap, float scale) {
   __shared__ float m_s[WARPS][MAX_G];
   __shared__ float l_s[WARPS][MAX_G];
-  __shared__ float acc_s[WARPS][MAX_G][MAX_DPL * 32];
+  __shared__ float acc_s[WARPS][MAX_G][VEC * 32];
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int chunk = (L + n_split - 1) / n_split;
+  const int j0 = split * chunk, j1 = min(L, j0 + chunk);
   const int Hq = Hkv * G;
   const int now = pos[b];
+  const bool lane_on = VEC * lane < D;
   const long long row_stride = (long long)Hkv * D;   // one cache slot
-  const TC* kb = kc + (long long)b * L * row_stride + (long long)hk * D;
-  const TC* vb = vc + (long long)b * L * row_stride + (long long)hk * D;
+  // this lane's elements of slot 0
+  const long long lane_off =
+      (long long)b * L * row_stride + (long long)hk * D + VEC * lane;
+  const TC* kb = kc + lane_off;
+  const TC* vb = vc + lane_off;
   const int* cp = cache_pos + (long long)b * L;
   const long long q_off = ((long long)b * Hq + (long long)hk * G) * D;
 
-  float qr[MAX_G][MAX_DPL], m[MAX_G], l[MAX_G], acc[MAX_G][MAX_DPL];
+  float qr[MAX_G][VEC], m[MAX_G], l[MAX_G], acc[MAX_G][VEC];
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g) {
     m[g] = MASK_VALUE;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < MAX_DPL; ++i) {
-      const int d = lane + 32 * i;
-      qr[g][i] = (g < G && d < D) ? to_f32(q[q_off + (long long)g * D + d])
-                                  : 0.f;
-      acc[g][i] = 0.f;
+    for (int e = 0; e < VEC; ++e) {
+      qr[g][e] = (g < G && lane_on)
+                     ? to_f32(q[q_off + (long long)g * D + VEC * lane + e])
+                     : 0.f;
+      acc[g][e] = 0.f;
     }
   }
 
-  for (int base = w * U; base < L; base += WARPS * U) {
+  for (int base = j0 + w * U; base < j1; base += WARPS * U) {
     bool ok[U];
-    float kr[U][MAX_DPL], vr[U][MAX_DPL];
+    float kr[U][VEC], vr[U][VEC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + u;
       ok[u] = false;
-      if (j < L) {
+      if (j < j1) {
         const int c = cp[j];
         ok[u] = c >= 0 && c <= now && (window < 0 || c > now - window);
       }
+      if (ok[u] && lane_on) {
+        load_row4(kb + j * row_stride, kr[u]);
+        load_row4(vb + j * row_stride, vr[u]);
+      } else {
 #pragma unroll
-      for (int i = 0; i < MAX_DPL; ++i) {
-        const int d = lane + 32 * i;
-        const bool in = ok[u] && d < D;
-        kr[u][i] = in ? to_f32(kb[j * row_stride + d]) : 0.f;
-        vr[u][i] = in ? to_f32(vb[j * row_stride + d]) : 0.f;
+        for (int e = 0; e < VEC; ++e) kr[u][e] = vr[u][e] = 0.f;
       }
     }
 #pragma unroll
@@ -106,7 +141,7 @@ __global__ void __launch_bounds__(WARPS * 32) decode_kernel(
       for (int u = 0; u < U; ++u) {
         float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < MAX_DPL; ++i) part = fmaf(qr[g][i], kr[u][i], part);
+        for (int e = 0; e < VEC; ++e) part = fmaf(qr[g][e], kr[u][e], part);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -124,11 +159,11 @@ __global__ void __launch_bounds__(WARPS * 32) decode_kernel(
       }
       l[g] = l[g] * alpha + p_sum;
 #pragma unroll
-      for (int i = 0; i < MAX_DPL; ++i) {
-        float a = acc[g][i] * alpha;
+      for (int e = 0; e < VEC; ++e) {
+        float a = acc[g][e] * alpha;
 #pragma unroll
-        for (int u = 0; u < U; ++u) a = fmaf(p[u], vr[u][i], a);
-        acc[g][i] = a;
+        for (int u = 0; u < U; ++u) a = fmaf(p[u], vr[u][e], a);
+        acc[g][e] = a;
       }
       m[g] = s_max;
     }
@@ -142,13 +177,13 @@ __global__ void __launch_bounds__(WARPS * 32) decode_kernel(
       l_s[w][g] = l[g];
     }
 #pragma unroll
-    for (int i = 0; i < MAX_DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) acc_s[w][g][d] = acc[g][i];
-    }
+    for (int e = 0; e < VEC; ++e)
+      if (lane_on) acc_s[w][g][VEC * lane + e] = acc[g][e];
   }
   __syncthreads();
 
+  // merge the warps; one split writes the output, more write partials
+  const long long part = ((long long)b * Hkv + hk) * n_split + split;
   for (int t = threadIdx.x; t < G * D; t += WARPS * 32) {
     const int g = t / D, d = t - g * D;
     float mx = MASK_VALUE;
@@ -161,44 +196,96 @@ __global__ void __launch_bounds__(WARPS * 32) decode_kernel(
       l_sum += l_s[ww][g] * f;
       a += acc_s[ww][g][d] * f;
     }
+    if (n_split == 1) {
+      o[q_off + t] = from_f32<TQ>(a / fmaxf(l_sum, 1e-30f));
+    } else {
+      part_acc[part * G * D + t] = a;
+      if (d == 0) {
+        part_m[part * G + g] = mx;
+        part_l[part * G + g] = l_sum;
+      }
+    }
+  }
+}
+
+// merges the n_split partials of one (kv-head, batch row) in split order
+template <typename TQ>
+__global__ void __launch_bounds__(COMBINE_THREADS) decode_combine_kernel(
+    const float* __restrict__ part_m, const float* __restrict__ part_l,
+    const float* __restrict__ part_acc, TQ* __restrict__ o, int Hkv, int G,
+    int D, int n_split) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const long long first = ((long long)b * Hkv + hk) * n_split;
+  const long long q_off = ((long long)b * Hkv + hk) * G * D;
+  for (int t = threadIdx.x; t < G * D; t += COMBINE_THREADS) {
+    const int g = t / D;
+    float mx = MASK_VALUE;
+    for (int s = 0; s < n_split; ++s)
+      mx = fmaxf(mx, part_m[(first + s) * G + g]);
+    float l_sum = 0.f, a = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float f = expf(part_m[(first + s) * G + g] - mx);
+      l_sum += part_l[(first + s) * G + g] * f;
+      a += part_acc[(first + s) * G * D + t] * f;
+    }
     o[q_off + t] = from_f32<TQ>(a / fmaxf(l_sum, 1e-30f));
   }
 }
 
 template <typename TQ, typename TC>
 int launch(const void* q, const void* kc, const void* vc,
-           const void* cache_pos, const void* pos, void* o, int B, int L,
-           int Hkv, int G, int D, int window, float softcap, float scale,
+           const void* cache_pos, const void* pos, void* o, void* part_m,
+           void* part_l, void* part_acc, int B, int L, int Hkv, int G, int D,
+           int n_split, int window, float softcap, float scale,
            cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
-  decode_kernel<TQ, TC><<<grid, WARPS * 32, 0, stream>>>(
+  const dim3 grid(n_split, Hkv, B);
+  decode_split_kernel<TQ, TC><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(kc),
       static_cast<const TC*>(vc), static_cast<const int*>(cache_pos),
-      static_cast<const int*>(pos), static_cast<TQ*>(o), L, Hkv, G, D,
-      window, softcap, scale);
+      static_cast<const int*>(pos), static_cast<TQ*>(o),
+      static_cast<float*>(part_m), static_cast<float*>(part_l),
+      static_cast<float*>(part_acc), L, Hkv, G, D, n_split, window, softcap,
+      scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  decode_combine_kernel<TQ><<<dim3(Hkv, B), COMBINE_THREADS, 0, stream>>>(
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<TQ*>(o), Hkv, G, D,
+      n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// part_m, part_l (B, Hkv, n_split, G) and part_acc (B, Hkv, n_split, G, D)
+// are f32 scratch, read only when n_split > 1; D a multiple of 4, the
+// caches 16-byte aligned
 extern "C" int repro_decode_attention(
     const void* q, const void* kc, const void* vc, const void* cache_pos,
-    const void* pos, void* o, int B, int L, int Hkv, int G, int D,
-    int window, float softcap, float scale, int q_bf16, int cache_bf16,
-    void* stream) {
-  if (D > MAX_DPL * 32 || D <= 0 || G > MAX_G || G <= 0) return 1;  // cudaErrorInvalidValue
+    const void* pos, void* o, void* part_m, void* part_l, void* part_acc,
+    int B, int L, int Hkv, int G, int D, int n_split, int window,
+    float softcap, float scale, int q_bf16, int cache_bf16, void* stream) {
+  if (D > VEC * 32 || D <= 0 || D % VEC != 0 || G > MAX_G || G <= 0 ||
+      n_split < 1 || n_split > 65535 || Hkv > 65535 || B > 65535 ||
+      (n_split > 1 && (part_m == nullptr || part_l == nullptr ||
+                       part_acc == nullptr)))
+    return 1;                                  // cudaErrorInvalidValue
   if (B == 0 || Hkv == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
   if (q_bf16 && cache_bf16)
-    return launch<bf, bf>(q, kc, vc, cache_pos, pos, o, B, L, Hkv, G, D,
-                          window, softcap, scale, s);
+    return launch<bf, bf>(q, kc, vc, cache_pos, pos, o, part_m, part_l,
+                          part_acc, B, L, Hkv, G, D, n_split, window, softcap,
+                          scale, s);
   if (q_bf16)
-    return launch<bf, float>(q, kc, vc, cache_pos, pos, o, B, L, Hkv, G, D,
-                             window, softcap, scale, s);
+    return launch<bf, float>(q, kc, vc, cache_pos, pos, o, part_m, part_l,
+                             part_acc, B, L, Hkv, G, D, n_split, window,
+                             softcap, scale, s);
   if (cache_bf16)
-    return launch<float, bf>(q, kc, vc, cache_pos, pos, o, B, L, Hkv, G, D,
-                             window, softcap, scale, s);
-  return launch<float, float>(q, kc, vc, cache_pos, pos, o, B, L, Hkv, G, D,
-                              window, softcap, scale, s);
+    return launch<float, bf>(q, kc, vc, cache_pos, pos, o, part_m, part_l,
+                             part_acc, B, L, Hkv, G, D, n_split, window,
+                             softcap, scale, s);
+  return launch<float, float>(q, kc, vc, cache_pos, pos, o, part_m, part_l,
+                              part_acc, B, L, Hkv, G, D, n_split, window,
+                              softcap, scale, s);
 }

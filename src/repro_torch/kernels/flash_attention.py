@@ -3,9 +3,15 @@
 Port of ``repro/kernels/flash_attention.py``. Forward only, as there: the
 reference trains LMs through the chunked path, not through this kernel.
 
-* CUDA tensors launch K4 (``csrc/flash_attention.cu``): one thread block
-  per (q block, q head, batch row) walks the reachable k blocks with running
-  f32 ``m``/``l``/``acc``, K and V tiles staged in shared memory.
+* CUDA tensors launch K4 by one of two routes, chosen by ``tc_route`` from
+  the dtype and the shapes alone. bf16 with head dim 64 or 128 takes the
+  tensor-core kernel (``csrc/flash_attention_tc.cu``: TMA loads into a
+  shared-memory ring, ``wgmma`` for QK^T and for PV, P split into bf16 hi
+  and lo parts so that it keeps f32 accuracy). Everything else (f32, other
+  head dims) takes the SIMT kernel (``csrc/flash_attention.cu``: products
+  on the f32 cores). In both, one thread block per (q block, q head, batch
+  row) walks the reachable k blocks with running f32 ``m``/``l``/``acc``.
+  Neither gives way to the other on a failure.
 * CPU tensors run the plain version ``flash_attention_plain``, which follows
   the Pallas body step by step on the same block sizes: f32 scores, the
   softcap, the ``kpos < kv_len`` / causal / window masks, the running
@@ -26,9 +32,17 @@ import torch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import MASK_VALUE as NEG_INF
 
-BLOCK_Q = 64          # the CUDA kernel's tile: 64 queries x 64 keys
+BLOCK_Q = 64          # the SIMT kernel's tile: 64 queries x 64 keys
 BLOCK_K = 64
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's head dims (bf16 only)
+
+
+def tc_route(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether K4 on these inputs takes the tensor-core kernel: bf16 with
+    head dim 64 or 128 and at least one key. Otherwise the SIMT kernel."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+            and k.shape[1] > 0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,9 +132,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Replaces the TPU kernel ``_flash_kernel`` of
     ``repro/kernels/flash_attention.py``. Bound by operations: 4·D flops
     per reachable (query, key) pair and q-head against a few bytes per
-    element of q, k, v and o. This first version runs the products on the
-    f32 cores (64 x 64 tiles, one 4 x 4 score and 4 x 8 output micro-tile
-    per thread), not on the tensor cores.
+    element of q, k, v and o. ``tc_route`` picks the kernel: the
+    tensor-core one (bf16, head dim 64 or 128; its TMA loads need 16-byte
+    aligned q, k, v) or the SIMT one on the f32 cores.
     """
     _check(q, k, v, q_offset)
     B, Sq, Hq, D = q.shape
@@ -129,11 +143,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = cuda_lib.load()
-    status = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        Hq, Hkv, D, q_offset, int(causal), -1 if window is None else window,
-        float(softcap), D ** -0.5, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, Hq, Hkv, D, q_offset, int(causal),
+            -1 if window is None else window, float(softcap), D ** -0.5)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if tc_route(q, k):
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 "aligned (the TMA loads need it)")
+        status = lib.repro_flash_attention_tc(*args, stream)
+    else:
+        status = lib.repro_flash_attention(
+            *args, int(q.dtype == torch.bfloat16), stream)
     cuda_lib.check(status, "flash_attention")
     cuda_lib.LAUNCHES["flash_attention"] += 1
     return out

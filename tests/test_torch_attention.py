@@ -257,6 +257,92 @@ def test_decode_plain_matches_pallas_and_oracle(B, L, Hkv, G, window,
            got, _tol(q_dtype), "default block")
 
 
+def _split_cache_pos(layout, B, L):
+    """cache_pos (B, L) and pos (B,) for the split cases."""
+    slots = np.arange(L)
+    if layout == "prefix":             # 80 written slots: later splits empty
+        cp, pos = np.where(slots < 80, slots, -1), np.full((B,), 79)
+    elif layout == "ring":             # slots 0-99 hold the newest positions
+        cp, pos = np.where(slots < 100, slots + L, slots), np.full((B,), L + 99)
+    else:                              # "empty-row": row 1 holds nothing
+        cp, pos = slots, np.full((B,), L - 1)
+    cp = np.broadcast_to(cp, (B, L)).astype(np.int32).copy()
+    if layout == "empty-row":
+        cp[1] = -1
+    return cp, pos.astype(np.int32)
+
+
+SPLIT_CASES = [
+    # B, L, Hkv, G, window, layout, q dtype, cache dtype
+    (1, 400, 1, 4, None, "prefix", "float32", "float32"),      # 3 empty splits
+    (2, 300, 2, 2, None, "empty-row", "float32", "float32"),  # a row with none
+    (2, 384, 1, 3, 150, "ring", "float32", "float32"),         # wrapped ring
+    (2, 300, 2, 2, None, "empty-row", "bfloat16", "float32"),  # engine dtypes
+]
+
+
+@pytest.mark.parametrize("B,L,Hkv,G,window,layout,q_dtype,c_dtype",
+                         SPLIT_CASES)
+def test_decode_plain_split_matches_pallas_and_oracle(B, L, Hkv, G, window,
+                                                      layout, q_dtype,
+                                                      c_dtype):
+    """Caches long enough that ``split_plan`` splits them: the plain K5 runs
+    each split's running softmax and the combine pass, and still matches the
+    unsplit Pallas kernel and the oracle; a row with no valid slot anywhere
+    gives exactly 0."""
+    assert tda.split_plan(B, Hkv, L) > 1
+    rng = np.random.default_rng(L + G)
+    D = 32
+    q = rng.standard_normal((B, 1, Hkv * G, D)).astype(np.float32)
+    kc, vc = (rng.standard_normal((B, L, Hkv, D)).astype(np.float32)
+              for _ in range(2))
+    cp, pos = _split_cache_pos(layout, B, L)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(q, q_dtype), _pair(kc, c_dtype),
+                                    _pair(vc, c_dtype))
+    (jcp, tcp), (jpos, tpos) = _pair(cp, "int32"), _pair(pos, "int32")
+    got = tda.decode_attention_plain(tq, tk, tv, tcp, tpos, window=window,
+                                     block_k=64)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kernel = pallas_decode(jq, jk, jv, jcp, jpos, window=window, block_k=128)
+    _close(got, kernel, _tol(q_dtype), "vs the Pallas kernel")
+    oracle = decode_attention_ref(jq, jk, jv, jcp, jpos, window=window)
+    if layout == "empty-row":          # the oracle averages an empty row
+        oracle, got_valid = np.asarray(oracle)[:1], got[:1]
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
+    else:
+        got_valid = got
+    _close(got_valid, oracle, 3e-5 if q_dtype == "float32" else BF16_TOL,
+           "vs ref.decode_attention_ref")
+
+
+def test_split_plan_and_k4_route_follow_the_shape_alone():
+    """K5's split count and K4's route are functions of dtype and shape."""
+    plan = tda.split_plan
+    assert plan(1, 8, 2048) == 16          # 128 blocks of 128 slots
+    assert plan(8, 8, 4096) == 2           # 128 blocks of 2048 slots
+    assert plan(16, 8, 4096) == 1          # B x Hkv fills the card alone
+    assert plan(1, 1, 300) == 3 and plan(2, 8, 256) == 2
+    for B in (1, 2, 4, 8, 64):
+        assert plan(B, 8, 128) == 1        # the engine's cache: one launch
+    for B in (1, 3, 8):
+        for Hkv in (1, 2, 8):
+            for L in (1, 129, 1000, 4096, 32768):
+                n = plan(B, Hkv, L)
+                assert 1 <= n <= max(1, tda.SPLIT_SMS // (B * Hkv))
+                assert n == 1 or L / n >= 64
+
+    def meta(dtype, S, H, D):
+        return torch.empty((2, S, H, D), dtype=dtype, device="meta")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for D in (64, 128):
+        assert tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 7, 2, D))
+        assert not tfa.tc_route(meta(f32, 100, 4, D), meta(f32, 7, 2, D))
+        assert not tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 0, 2, D))
+    for D in (16, 32, 48, 96):
+        assert not tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 7, 2, D))
+
+
 def test_decode_plain_ring_wrap_and_softcap():
     """A wrapped ring (slots 0-7 hold the newest positions) with a window,
     and the softcap."""

@@ -14,7 +14,10 @@ train step on the card matches the CPU within 2e-5 and is deterministic.
 
 K4 and K5 agree with their plain versions within 2e-5 in f32 and, in
 bf16, within 1e-3 plus 8e-3 of the output (one bf16 step): both compute in
-f32, in other summation orders, and round once at the end.
+f32, in other summation orders, and round once at the end (K4's
+tensor-core route carries p as a bf16 hi + lo pair, about 2^-17). K4 cases
+in bf16 with head dim 64 or 128 take the tensor-core route, the rest the
+SIMT route; K5 cases of 600 or more slots are split across the cache.
 The reduced LM's logits on the card match the CPU's within 1e-4, and the
 serving engine gives the CPU's greedy tokens.
 """
@@ -203,6 +206,8 @@ def _attn_close(got, want, dtype, msg=""):
     (77, 77, 1, 16, False, None, 20.0, 0),     # non-causal, softcap
     (40, 104, 4, 32, True, 24, 0.0, 64),       # q_offset after a prefix
     (64, 8, 2, 16, True, 4, 0.0, 0),           # rows with no valid key
+    (300, 300, 3, 128, True, None, 30.0, 0),   # ragged 128-row tiles, softcap
+    (200, 330, 4, 64, True, 100, 0.0, 130),    # D=64, window, q_offset
 ])
 def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
                           q_offset, dtype):
@@ -214,6 +219,7 @@ def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
                              .astype(np.float32)).to(dtype) for _ in range(2))
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
+    assert fa.tc_route(q, k) == (dtype == torch.bfloat16 and D in (64, 128))
     cuda_lib.reset_launches()
     got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
     torch.cuda.synchronize()
@@ -225,6 +231,20 @@ def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
                                               v.to(dev), **kw), dtype, "card")
 
 
+def test_k4_tensor_core_route_refuses_unaligned_inputs(dev):
+    """TMA needs 16-byte aligned q, k, v: a view 2 bytes off raises."""
+    shape = (1, 64, 2, 64)
+    n = 64 * 2 * 64
+    buf = torch.zeros(n + 1, dtype=torch.bfloat16, device=dev)
+    q = buf[1:].view(shape)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    assert fa.tc_route(q, k)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_cuda(q, k, k, causal=True)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 0
+
+
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16)])
@@ -233,6 +253,9 @@ def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
     (300, 4, 64, None, 0.0, "padded"),          # -1 slots past the prompt
     (48, 2, 32, 16, 5.0, "ring"),               # wrapped ring + window
     (16, 8, 16, None, 0.0, "empty-row"),        # a row with no valid slot
+    (1000, 4, 128, None, 0.0, "padded"),        # 8 splits, the last 5 empty
+    (1000, 3, 128, None, 0.0, "empty-row"),     # 8 splits, one row empty
+    (600, 2, 64, 300, 3.0, "ring"),             # 5 splits, wrapped + window
 ])
 def test_k5_matches_plain(dev, L, G, D, window, softcap, layout, q_dtype,
                           c_dtype):

@@ -155,4 +155,5 @@ def test_library_path_tracks_the_sources():
     assert path.name.startswith("librepro_torch_kernels-")
     srcs = {p.name for p in cuda_lib.CSRC_DIR.glob("*.cu")}
     assert srcs == {"fused_embedding.cu", "fused_update.cu",
-                    "flash_attention.cu", "decode_attention.cu"}
+                    "flash_attention.cu", "flash_attention_tc.cu",
+                    "decode_attention.cu"}
