@@ -10,16 +10,17 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
 1. build: compile K1-K5 from ``src/repro_torch/csrc`` into ``build/``;
    print the card's name and power limit (``nvidia-smi``) and the
    ``-Xptxas -v`` lines (registers, shared memory, spills) of the
-   redesigned K4/K5 kernels; K4's tensor-core kernel must not spill.
+   redesigned K2-K5 kernels; K2/K3's main-path kernels and K4's
+   tensor-core kernel must not spill.
 2. K1 against its plain version on the card at the full Wide&Deep shapes
    (B=512, T=26, H=4, R=3,294,238, D=16 and the wide D=1), over
    sum/mean/max x weighted/unweighted x cache off/64/26*512 rows x flat/
    padded (n_ps=4): max exact, sum/mean within K1_ULP; cache-on and padded
    outputs equal cache-off flat outputs bit for bit.
 3. K2 and K3 against their plain versions on the deduped rows of a real
-   full-width batch, from fresh and from carried moment pools: params
-   within 64 ULP, moments within 4 ULP; rows not touched stay
-   bit-identical.
+   full-width batch (D=16 on the vector route, D=1 on the scalar route),
+   from fresh and from carried moment pools: bit for bit (0 ULP); rows not
+   touched stay bit-identical.
 4. the slice through ``repro_torch.launch.train``: 20 full-width Wide&Deep
    steps with the fused update (adagrad, zipf 1.05, 64 hot rows, padded
    shards), 5 with adam, 5 on the dense path; every kernel of each path
@@ -30,8 +31,13 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
 5. per kernel: launches, median time at the main path's shapes, its bound
    at 3.35 TB/s, the plain version's time and, for K1, the time of
    ``torch.nn.functional.embedding_bag`` (a yardstick the port never calls).
+   K2/K3 on both pools of the step: the deep D=16 pool, which must take
+   the vector route, and the wide D=1 pool, the scalar route, with
+   ``update_plan``'s grid and its waves at the kernels' occupancy.
 6. a ``torch.profiler`` breakdown of the fused adagrad step: device time,
-   idle share and the kernels that take the most device time.
+   idle share, the kernels that take the most device time, and K1 and K2
+   (both pools) found by name, with their device time per call; fails if
+   the trace has no device events or misses one of them.
 
 The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
 heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
@@ -83,8 +89,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 K1_ULP = 2            # K1 vs plain, sum/mean (both are unfused, same order)
-PARAM_ULP = 64        # K2/K3 vs plain, params (the bounds of the
-MOMENT_ULP = 4        # reference's fused-update tests), moments
+PARAM_ULP = 0         # K2/K3 vs plain on the card, params and moments: bit
+MOMENT_ULP = 0        # for bit (the same _rn operations in the same order)
 LOSS_ATOL = 1e-4      # card vs CPU loss, 3 full-width steps
 # K4/K5 vs plain, (abs, rel) of the plain output: both compute in f32 in
 # other orders, so a bf16 output may round one bf16 step (at most 2^-7 of
@@ -134,7 +140,9 @@ def ulp_distance(a, b) -> int:
 
 def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     """Median device time of ``fn`` in ms over ``iters`` launches, each
-    timed alone with CUDA events after a write that evicts the L2.
+    timed alone with CUDA events after a write that evicts the L2 (``flush``
+    is a tensor larger than the L2, zeroed before each launch, or a
+    callable run there instead).
 
     A spin kernel first keeps the card busy while the host enqueues every
     launch, so no host-side launch gap lands between a pair of events (a
@@ -148,7 +156,7 @@ def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     for s, e in zip(starts, ends):
-        flush.zero_()
+        flush() if callable(flush) else flush.zero_()
         s.record()
         fn()
         e.record()
@@ -189,23 +197,37 @@ def clone_state(state, device):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-# mangled-name fragments of the redesigned kernels -> report names
-PTXAS_REPORTED = {
-    "flash_tc_kernelILi128": "K4 tensor-core D=128",
-    "flash_tc_kernelILi64": "K4 tensor-core D=64",
-    "decode_split_kernelI13__nv_bfloat16fE": "K5 split (bf16 q, f32 cache)",
-    "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
-}
+def ptxas_reported():
+    """Patterns on the mangled names of the redesigned kernels -> report
+    names. K2/K3 at the unroll the main path launches."""
+    from repro_torch.kernels import fused_update as fu
+    _, u16, _ = fu.VECTOR16_GEOMETRY
+    _, u1, g1 = fu.WIDE_GEOMETRY
+    rows = {}
+    for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3")):
+        rows[f"rows_vec16_kernelI\\w*{op}ELi{u16}EE"] = \
+            f"{k} D=16 vector (unroll {u16})"
+        rows[f"rows_wide_kernelI\\w*{op}ELi{u1}ELi{g1}EE"] = \
+            f"{k} D=1 scalar (unroll {u1}, group {g1})"
+    return {
+        "flash_tc_kernelILi128": "K4 tensor-core D=128",
+        "flash_tc_kernelILi64": "K4 tensor-core D=64",
+        "decode_split_kernelI13__nv_bfloat16fE":
+            "K5 split (bf16 q, f32 cache)",
+        "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
+        **rows}
 
 
 def ptxas_report(build_log):
     """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
-    kernels named in PTXAS_REPORTED, one string per kernel."""
+    kernels named by ``ptxas_reported``, one string per kernel."""
+    import re
+    reported = ptxas_reported()
     out, current = {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            current = next((name for key, name in PTXAS_REPORTED.items()
-                            if key in line), None)
+            current = next((name for key, name in reported.items()
+                            if re.search(key, line)), None)
         elif current and ("spill" in line or "Used" in line):
             out.setdefault(current, []).append(
                 line.split("info    :")[-1].strip())
@@ -223,11 +245,11 @@ def phase_build(report):
                        "library": str(lib.relative_to(ROOT)),
                        "ptxas": ptxas, "log": build_log}
     log(f"phase 1 build: {lib.name} in {report['build']['seconds']:.1f} s")
-    missing = set(PTXAS_REPORTED.values()) - set(ptxas)
+    missing = set(ptxas_reported().values()) - set(ptxas)
     check(not missing, f"no ptxas lines for {missing}")
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
-        if name.startswith("K4"):
+        if name.startswith(("K2", "K3", "K4")):
             check("0 bytes spill stores, 0 bytes spill loads" in line,
                   f"{name} spills: {line}")
 
@@ -329,8 +351,9 @@ def phase_k2_k3(report, dev):
 
     From (a) fresh moment pools without weight decay, as on a first step,
     and (b) carried random moments with weight decay: params within
-    PARAM_ULP and moments within MOMENT_ULP ULPs (the kernels avoid FMA
-    contraction, so 0 is expected); untouched rows stay bit-identical.
+    PARAM_ULP and moments within MOMENT_ULP ULPs, both 0: the kernels avoid
+    FMA contraction and keep the plain versions' order; untouched rows stay
+    bit-identical.
     """
     import torch
     from repro_torch.kernels import fused_update as fu
@@ -492,7 +515,6 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_embedding as fe
-    from repro_torch.kernels import fused_update as fu
     from repro_torch.models.dlrm import _pool2d
 
     cfg, plan = run.cfg, run.plan
@@ -540,55 +562,96 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
     wide_ms = time_ms(lambda: fe.embedding_bag_cuda(wide, wenc, None, wcache,
                                                     "sum"), flush)
 
-    # K2/K3 on the deduped rows of the same batch (scratch copies of pools)
-    p0, rows, vals = _sparse_rows(cfg, dev, D)
-    R = p0.shape[0]
-    n_live = int((rows < R).sum())
-    acc = torch.rand(p0.shape, device=dev)
-    p_k, a_k = p0.clone(), acc.clone()
-    k2_ms = time_ms(lambda: fu.adagrad_rows_cuda(
-        p_k, a_k, rows, vals, lr=3e-3, eps=1e-10), flush)
-    k2_plain = time_ms(lambda: fu.adagrad_rows_plain(
-        p_k, a_k, rows, vals, lr=3e-3, eps=1e-10), flush)
-    k2_bound, k2_by = bound_ms(n_live * D * 4 * 5 + N * 4, n_live * D * 6)
-    kernels.append({
-        "name": "K2 adagrad_row_update", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_update.cu",
-        "replaces": "src/repro/kernels/fused_update.py:72",
-        "launches": c_main["adagrad_row_update"],
-        "max_abs_err": errs["k2_k3"]["adagrad_row_update"],
-        "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-        "bound_by": k2_by, "library_ms": None})
-    bias = fu.adam_bias(7, 0.9, 0.999, dev)
-    kw = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
-    m_k, v_k = acc.clone() - 0.5, acc.clone()
-    k3_ms = time_ms(lambda: fu.adam_rows_cuda(p_k, m_k, v_k, rows, vals,
-                                              bias, **kw), flush)
-    k3_plain = time_ms(lambda: fu.adam_rows_plain(p_k, m_k, v_k, rows, vals,
-                                                  bias, **kw), flush)
-    k3_bound, k3_by = bound_ms(n_live * D * 4 * 7 + N * 4 + 8,
-                               n_live * D * 14)
-    kernels.append({
-        "name": "K3 adam_row_update", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_update.cu",
-        "replaces": "src/repro/kernels/fused_update.py:180",
-        "launches": c_adam["adam_row_update"],
-        "max_abs_err": errs["k2_k3"]["adam_row_update"],
-        "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-        "bound_by": k3_by, "library_ms": None})
+    # K2/K3 on the deduped rows of the same batch (scratch copies of pools):
+    # the deep pool (D=16, vector route) and the wide pool (D=1, scalar)
+    k23 = {}
+    for width in (D, 1):
+        k23[width] = _time_k2_k3(dev, cfg, width, flush)
+    for name, kernel, launches, replaces in (
+            ("K2 adagrad_row_update", "adagrad_row_update",
+             c_main["adagrad_row_update"], 72),
+            ("K3 adam_row_update", "adam_row_update",
+             c_adam["adam_row_update"], 180)):
+        deep, wide = k23[D][kernel], k23[1][kernel]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_update.cu",
+            "replaces": f"src/repro/kernels/fused_update.py:{replaces}",
+            "launches": launches, "max_abs_err": errs["k2_k3"][kernel],
+            "ms": deep["ms"], "plain_ms": deep["plain_ms"],
+            "bound_ms": deep["bound_ms"], "bound_by": deep["bound_by"],
+            "library_ms": None, "at": f"D={D}, {deep['route']} route",
+            "plan": deep["plan"], "wide_ms": wide["ms"],
+            "wide_plain_ms": wide["plain_ms"],
+            "wide_bound_ms": wide["bound_ms"],
+            "wide_bound_by": wide["bound_by"], "wide_plan": wide["plan"]})
     report["kernels"] = kernels
     report["timing"] = {
         "l2_flushed": True, "iters": TIMING_ITERS,
         "k1_deep_cold_rows": n_cold_rows, "k1_deep_bytes": k1_bytes,
-        "k1_wide_ms": wide_ms, "k2_k3_live_rows": n_live,
+        "k1_wide_ms": wide_ms, "k2_k3": k23,
         "launches_per_step": {
             "fused_embedding_bag": c_main["fused_embedding_bag"] / 20,
             "adagrad_row_update": c_main["adagrad_row_update"] / 20,
             "adam_row_update": c_adam["adam_row_update"] / 5}}
     log(f"phase 5 timing: K1 {k_ms:.4f} ms (wide {wide_ms:.4f} ms), "
-        f"K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms; "
-        f"{n_live} live rows, {n_cold_rows} cold K1 rows")
+        f"K2 {k23[D]['adagrad_row_update']['ms']:.4f} ms (wide "
+        f"{k23[1]['adagrad_row_update']['ms']:.4f} ms), K3 "
+        f"{k23[D]['adam_row_update']['ms']:.4f} ms (wide "
+        f"{k23[1]['adam_row_update']['ms']:.4f} ms); "
+        f"{k23[D]['live_rows']} live rows, {n_cold_rows} cold K1 rows")
     return kernels
+
+
+def _time_k2_k3(dev, cfg, D, flush):
+    """K2 and K3 timed on the deduped rows of a real batch for a D-wide
+    pool, beside their plain versions and bounds (bytes: 5 and 7 words per
+    live row element plus a row id per entry). The route must be the main
+    path's (vector for D=16, scalar for D=1); ``update_plan``'s grid is
+    reported with the kernels' resident blocks per SM and the waves it
+    takes."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import fused_update as fu
+    p0, rows, vals = _sparse_rows(cfg, dev, D)
+    R, N = p0.shape[0], rows.shape[0]
+    n_live = int((rows < R).sum())
+    acc = torch.rand(p0.shape, device=dev)
+    m_k, v_k = acc.clone() - 0.5, acc.clone()
+    route = fu.update_route(D, p0, vals, acc)
+    want = "vector" if D % 4 == 0 else "scalar"
+    check(route == want, f"K2/K3 at D={D} take the {route} route, not {want}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fu.update_plan(N, D, sms, route)
+    lib = cuda_lib.load()
+    out = {"live_rows": n_live, "entries": N}
+    p_k, a_k = p0.clone(), acc.clone()
+    bias = fu.adam_bias(7, 0.9, 0.999, dev)
+    kw = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
+    for adam, kernel, words, flops in ((0, "adagrad_row_update", 5, 6),
+                                       (1, "adam_row_update", 7, 14)):
+        per_sm = lib.repro_rows_blocks_per_sm(adam, D, int(route == "vector"),
+                                              *plan[1:])
+        check(per_sm > 0, f"{kernel} D={D}: occupancy query failed "
+              f"({per_sm})")
+        if adam:
+            k_ms = time_ms(lambda: fu.adam_rows_cuda(
+                p_k, m_k, v_k, rows, vals, bias, **kw), flush)
+            p_ms = time_ms(lambda: fu.adam_rows_plain(
+                p_k, m_k, v_k, rows, vals, bias, **kw), flush)
+        else:
+            k_ms = time_ms(lambda: fu.adagrad_rows_cuda(
+                p_k, a_k, rows, vals, lr=3e-3, eps=1e-10), flush)
+            p_ms = time_ms(lambda: fu.adagrad_rows_plain(
+                p_k, a_k, rows, vals, lr=3e-3, eps=1e-10), flush)
+        b_ms, b_by = bound_ms(n_live * D * 4 * words + N * 4 + 8 * adam,
+                              n_live * D * flops)
+        out[kernel] = {"route": route, "plan": plan._asdict(),
+                       "blocks_per_sm": per_sm,
+                       "waves": plan.blocks / (per_sm * sms),
+                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+    return out
 
 
 def _device_summary(prof, wall_us, n_steps, top):
@@ -615,6 +678,15 @@ def _device_summary(prof, wall_us, n_steps, top):
             {"name": k[:90], "ms_per_step": us / n_steps / 1e3,
              "calls_per_step": c / n_steps} for k, us, c in ranked],
     }, device
+
+
+# the main path's kernels in the fused adagrad step, by fragments of the
+# names the profiler gives them
+PROFILED_KERNELS = {
+    "K1": ("fused_embedding_bag_kernel",),
+    "K2 D=16": ("rows_vec16_kernel", "AdagradOp"),
+    "K2 D=1": ("rows_wide_kernel", "AdagradOp"),
+}
 
 
 def phase_profile(report, dev, run, n_steps=10):
@@ -645,20 +717,28 @@ def phase_profile(report, dev, run, n_steps=10):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     info, device = _device_summary(prof, wall_us, n_steps, top=10)
-    ours = {name: [us / max(c, 1) for k, us, c in device if name in k]
-            for name in ("fused_embedding_bag_kernel", "adagrad_rows_kernel")}
-    info["kernel_us_per_call"] = {k: v for k, v in ours.items() if v}
     report["profile"] = info
-    if not device:
-        log("phase 6 profile: torch.profiler showed no device events")
-    else:
-        log(f"phase 6 profile: {info['wall_ms_per_step']:.3f} ms/step wall "
-            f"(profiler on), {info['device_ms_per_step']:.3f} ms/step on the "
-            f"device, idle share {info['device_idle_share']:.3f}, "
-            f"{info['device_events_per_step']:.0f} device events/step")
-        for t in info["top_device_time"]:
-            log(f"  {t['ms_per_step']:.4f} ms x{t['calls_per_step']:.0f} "
-                f"{t['name']}")
+    check(device, "phase 6: torch.profiler showed no device events")
+    per_call = {}
+    for label, fragments in PROFILED_KERNELS.items():
+        hits = [(us, c) for k, us, c in device
+                if all(f in k for f in fragments)]
+        check(hits, f"phase 6: {label} ({' + '.join(fragments)}) is not in "
+              "the profiled step")
+        calls = sum(c for _, c in hits)
+        per_call[label] = {"us_per_call": sum(us for us, _ in hits) / calls,
+                           "calls_per_step": calls / n_steps}
+    info["kernel_us_per_call"] = per_call
+    log(f"phase 6 profile: {info['wall_ms_per_step']:.3f} ms/step wall "
+        f"(profiler on), {info['device_ms_per_step']:.3f} ms/step on the "
+        f"device, idle share {info['device_idle_share']:.3f}, "
+        f"{info['device_events_per_step']:.0f} device events/step")
+    for label, v in per_call.items():
+        log(f"  {label}: {v['us_per_call']:.2f} us per call, "
+            f"{v['calls_per_step']:.0f} per step")
+    for t in info["top_device_time"]:
+        log(f"  {t['ms_per_step']:.4f} ms x{t['calls_per_step']:.0f} "
+            f"{t['name']}")
     return info
 
 

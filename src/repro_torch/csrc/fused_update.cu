@@ -5,25 +5,49 @@
 // `_adagrad_pallas`) and K3 replaces `_adam_kernel` (launched by
 // `_adam_pallas`), both in src/repro/kernels/fused_update.py.
 //
-// What they compute, for each entry e with rows[e] < R (entries >= R are
-// the sentinel tail of the dedupe and are skipped):
+// What they compute, for each entry e with 0 <= rows[e] < R (entries >= R
+// are the dedupe's padding and are skipped, wherever they stand):
 //   K2: a = acc[r] + g*g;  p[r] += -lr*g / (sqrt(a) + eps);  acc[r] = a
 //   K3: m = b1*m[r] + (1-b1)*g;  v = b2*v[r] + (1-b2)*g*g;
 //       p[r] += -lr * ((m/bias[0]) / (sqrt(v/bias[1]) + eps) + wd*p[r])
 // with the bias pair [1-b1^t, 1-b2^t] read from device memory (computed
-// once, in f32, by the caller).
+// once, in f32, by the caller) once per thread.
 //
-// Bound on this card: bytes. A row moves 5 x D x 4 B for K2 (param and
-// accumulator read and written, gradient read) and 7 x D x 4 B for K3; at
-// the full Wide&Deep width a step has at most 53,248 live rows of D=16:
-// about 17 MB (K2) and 24 MB (K3), 5-7 us at 3.35 TB/s.
+// Bound on this card: bytes. A live row moves 5 x D x 4 B for K2 (param
+// and accumulator read and written, gradient read) and 7 x D x 4 B for K3,
+// plus 4 B of row id per entry. A full-width Wide&Deep step dedupes its
+// 53,248 lookups to about 23,400 live rows of D=16 (the rest is padding):
+// 7.7 MB (K2) and 10.7 MB (K3), 2.30 / 3.20 us at 3.35 TB/s. What the card
+// really pays is latency: a launch that loads one row id and stops takes
+// 5.3 us timed with events after an L2 eviction, and the pool rows are
+// 64-byte pieces scattered over 211 MB pools (PERF.md).
 //
-// Design: one thread per (entry, d), so the D lanes of a row are
-// neighbouring threads and every access is one contiguous 64 B row segment
-// for D=16 (the wide pool has D=1). The dedupe makes rows unique, so no two
-// threads write the same element and no atomics are needed. The TPU
-// kernel's per-row DMA staging and its padding to whole row blocks are not
-// carried over.
+// Design. Every row id, then every pool and gradient load of a thread, is
+// in flight at once, and no thread is spent on nothing:
+// * D is a template parameter, so no thread divides by a runtime width:
+//   - D=16, the deep pool (vector route): 4 lanes of a warp own a row, one
+//     float4 each, so a warp takes 8 rows per step and 8U per tile. Lane l
+//     of the tile loads the tile's l-th row id (one coalesced load) and
+//     __shfl_sync hands it to the row's lanes.
+//   - D=1, the wide pool (scalar route): a thread takes G consecutive
+//     entries per step (G = 4: one int4 of row ids and one float4 of
+//     gradients), then G scattered words per pool.
+//   - Any other width: one thread per entry walks its row, in float4s when
+//     D % 4 == 0 and every array starts on 16 bytes (vector route), else in
+//     floats.
+// * Each thread keeps U rows (or G-entry steps) in flight: it loads U row
+//   ids, then issues every pool and gradient load of those U, then
+//   computes, then stores.
+// * The wrapper (`update_plan` in kernels/fused_update.py) sizes the grid
+//   to the work, capped at one wave of the SMs' 2,048 resident threads;
+//   the kernels walk anything beyond in a grid-stride loop.
+// * A padding entry costs its row-id load and nothing else: its gradient
+//   and pool words are never read.
+// U, G and the block size were measured (scripts/k2_k3_unroll_sweep.py):
+// U = 1 and G = 1 win, since more threads, each waiting on one row, hide
+// the scattered loads' latency better than fewer threads with more rows.
+// The dedupe makes rows unique, so no two threads write the same element
+// and no atomics are needed.
 //
 // Numerics: left to itself nvcc contracts the multiply-adds here (for
 // example p + neg_lr * s) into FMAs, which round once instead of twice;
@@ -31,86 +55,369 @@
 // itself. The kernels therefore spell every operation with the _rn
 // intrinsics, which are never contracted, in the plain versions' order:
 // they agree with `adagrad_rows_plain`/`adam_rows_plain` bit for bit.
+// Vectorising changes which thread updates an element, not its arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void adagrad_rows_kernel(
-    float* __restrict__ params, float* __restrict__ acc, long long R, int D,
-    const int32_t* __restrict__ rows, const float* __restrict__ vals,
-    long long N, float neg_lr, float eps) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * D) return;
-  const long long e = i / D;
-  const long long row = rows[e];
-  if (row < 0 || row >= R) return;      // sentinel tail of the dedupe
-  const long long o = row * D + (i - e * D);
-  const float g = vals[i];
-  const float a = __fadd_rn(acc[o], __fmul_rn(g, g));
-  const float upd =
-      __fdiv_rn(__fmul_rn(neg_lr, g), __fadd_rn(__fsqrt_rn(a), eps));
-  params[o] = __fadd_rn(params[o], upd);
-  acc[o] = a;
+constexpr int kMaxThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int K>
+struct Pools {
+  float* p[K];    // params first, then the moment pools
+};
+
+// ---------------------------------------------------------------------------
+// the two updates, one element at a time, in the plain versions' order
+// ---------------------------------------------------------------------------
+struct AdagradOp {
+  static constexpr int kPools = 2;    // params, acc
+  float neg_lr, eps;
+
+  __device__ __forceinline__ AdagradOp ready() const { return *this; }
+
+  __device__ __forceinline__ void operator()(float g, float (&s)[2]) const {
+    const float a = __fadd_rn(s[1], __fmul_rn(g, g));
+    const float upd =
+        __fdiv_rn(__fmul_rn(neg_lr, g), __fadd_rn(__fsqrt_rn(a), eps));
+    s[0] = __fadd_rn(s[0], upd);
+    s[1] = a;
+  }
+};
+
+struct AdamOp {
+  static constexpr int kPools = 3;    // params, m, v
+  float neg_lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd;
+  const float* bias;                  // [1 - b1^t, 1 - b2^t] on the device
+  float bias0, bias1;                 // filled by ready()
+
+  // the bias pair, read once per thread
+  __device__ __forceinline__ AdamOp ready() const {
+    AdamOp o = *this;
+    o.bias0 = __ldg(bias);
+    o.bias1 = __ldg(bias + 1);
+    return o;
+  }
+
+  __device__ __forceinline__ void operator()(float g, float (&s)[3]) const {
+    const float m_row =
+        __fadd_rn(__fmul_rn(b1, s[1]), __fmul_rn(one_minus_b1, g));
+    const float v_row = __fadd_rn(__fmul_rn(b2, s[2]),
+                                  __fmul_rn(one_minus_b2, __fmul_rn(g, g)));
+    const float mh = __fdiv_rn(m_row, bias0);
+    const float vh = __fdiv_rn(v_row, bias1);
+    const float step = __fadd_rn(
+        __fdiv_rn(mh, __fadd_rn(__fsqrt_rn(vh), eps)), __fmul_rn(wd, s[0]));
+    s[0] = __fadd_rn(s[0], __fmul_rn(neg_lr, step));
+    s[1] = m_row;
+    s[2] = v_row;
+  }
+};
+
+__device__ __forceinline__ float& lane_of(float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void adam_rows_kernel(
-    float* __restrict__ params, float* __restrict__ m, float* __restrict__ v,
-    long long R, int D, const int32_t* __restrict__ rows,
-    const float* __restrict__ vals, const float* __restrict__ bias,
-    long long N, float neg_lr, float b1, float one_minus_b1, float b2,
-    float one_minus_b2, float eps, float wd) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * D) return;
-  const long long e = i / D;
-  const long long row = rows[e];
-  if (row < 0 || row >= R) return;      // sentinel tail of the dedupe
-  const long long o = row * D + (i - e * D);
-  const float g = vals[i];
-  const float m_row = __fadd_rn(__fmul_rn(b1, m[o]), __fmul_rn(one_minus_b1, g));
-  const float v_row =
-      __fadd_rn(__fmul_rn(b2, v[o]), __fmul_rn(one_minus_b2, __fmul_rn(g, g)));
-  const float mh = __fdiv_rn(m_row, bias[0]);
-  const float vh = __fdiv_rn(v_row, bias[1]);
-  const float p = params[o];
-  const float step = __fadd_rn(__fdiv_rn(mh, __fadd_rn(__fsqrt_rn(vh), eps)),
-                               __fmul_rn(wd, p));
-  params[o] = __fadd_rn(p, __fmul_rn(neg_lr, step));
-  m[o] = m_row;
-  v[o] = v_row;
+// element j of a 1- or 4-wide load
+__device__ __forceinline__ int piece(int v, int) { return v; }
+__device__ __forceinline__ float piece(float v, int) { return v; }
+__device__ __forceinline__ int piece(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float piece(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+template <class Op, int K>
+__device__ __forceinline__ void apply(const Op& op, float g, float (&s)[K]) {
+  op(g, s);
+}
+
+template <class Op, int K>
+__device__ __forceinline__ void apply(const Op& op, float4 g,
+                                      float4 (&s)[K]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float t[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) t[k] = lane_of(s[k], i);
+    op(lane_of(g, i), t);
+#pragma unroll
+    for (int k = 0; k < K; ++k) lane_of(s[k], i) = t[k];
+  }
+}
+
+__device__ __forceinline__ bool live(int row, long long R) {
+  return row >= 0 && row < R;
+}
+
+// every kernel has this signature, so one pointer type serves the launch
+// and the occupancy query
+template <class Op>
+using RowsKernel = void (*)(Op, Pools<Op::kPools>, const int32_t*,
+                            const float*, long long, long long, int, bool);
+
+// ---------------------------------------------------------------------------
+// D=16, vector route: 4 lanes per row, 8U rows per warp and tile
+// ---------------------------------------------------------------------------
+template <class Op, int U>
+__global__ void __launch_bounds__(kMaxThreads) rows_vec16_kernel(
+    Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
+    const float* __restrict__ vals, long long N, long long R, int,
+    bool) {
+  constexpr int K = Op::kPools;
+  constexpr int kLanes = 4;                     // float4s per row
+  constexpr int kRowsPerStep = 32 / kLanes;     // rows per warp and step
+  constexpr int kTile = kRowsPerStep * U;       // rows per warp and tile
+  static_assert(kTile <= 32, "a tile's row ids must fit one warp load");
+  const Op o = op.ready();
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / kLanes;
+  const int c = lane % kLanes;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const float4* g4 = reinterpret_cast<const float4*>(vals);
+  for (long long base = warp * kTile; base < N; base += n_warps * kTile) {
+    // one coalesced load of the tile's row ids
+    int mine = -1;
+    if (lane < kTile && base + lane < N) mine = __ldg(rows + base + lane);
+    int row[U];
+    float4 g[U];
+    float4 s[U][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      row[u] = __shfl_sync(kFullMask, mine, u * kRowsPerStep + sub);
+      if (live(row[u], R)) {
+        const long long e = base + u * kRowsPerStep + sub;
+        const long long o4 = (long long)row[u] * kLanes + c;
+        g[u] = __ldg(g4 + e * kLanes + c);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          s[u][k] = reinterpret_cast<const float4*>(pools.p[k])[o4];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (live(row[u], R)) {
+        apply(o, g[u], s[u]);
+        const long long o4 = (long long)row[u] * kLanes + c;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          reinterpret_cast<float4*>(pools.p[k])[o4] = s[u][k];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// D=1, scalar route: G consecutive entries per thread and step (G = 4: one
+// int4 of row ids and one float4 of gradients where both arrays start on 16
+// bytes), U steps in flight
+// ---------------------------------------------------------------------------
+template <int G> struct Ids;
+template <> struct Ids<1> { using I = int; using F = float; };
+template <> struct Ids<4> { using I = int4; using F = float4; };
+
+template <class Op, int U, int G>
+__global__ void __launch_bounds__(kMaxThreads) rows_wide_kernel(
+    Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
+    const float* __restrict__ vals, long long N, long long R, int,
+    bool aligned) {
+  constexpr int K = Op::kPools;
+  using I = typename Ids<G>::I;
+  using F = typename Ids<G>::F;
+  const Op o = op.ready();
+  const long long n_groups = (N + G - 1) / G;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       g0 < n_groups; g0 += stride * U) {
+    int row[U][G];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e0 = (g0 + u * stride) * G;
+      if ((G == 1 || aligned) && e0 + G <= N) {
+        const I q = __ldg(reinterpret_cast<const I*>(rows + e0));
+#pragma unroll
+        for (int j = 0; j < G; ++j) row[u][j] = piece(q, j);
+      } else {
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          row[u][j] = e0 + j < N ? __ldg(rows + e0 + j) : -1;
+      }
+    }
+    float g[U][G];
+    float s[U][G][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e0 = (g0 + u * stride) * G;
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < G; ++j) any = any || live(row[u][j], R);
+      if (any && (G == 1 || aligned) && e0 + G <= N) {
+        const F q = __ldg(reinterpret_cast<const F*>(vals + e0));
+#pragma unroll
+        for (int j = 0; j < G; ++j) g[u][j] = piece(q, j);
+      } else if (any) {
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          g[u][j] = live(row[u][j], R) ? __ldg(vals + e0 + j) : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (live(row[u][j], R)) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) s[u][j][k] = pools.p[k][row[u][j]];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (live(row[u][j], R)) {
+          apply(o, g[u][j], s[u][j]);
+#pragma unroll
+          for (int k = 0; k < K; ++k) pools.p[k][row[u][j]] = s[u][j][k];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// any other width: one thread per entry walks its row in W-float pieces
+// ---------------------------------------------------------------------------
+template <int W> struct Piece;
+template <> struct Piece<1> { using T = float; };
+template <> struct Piece<4> { using T = float4; };
+
+template <class Op, int W>
+__global__ void __launch_bounds__(kMaxThreads) rows_any_kernel(
+    Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
+    const float* __restrict__ vals, long long N, long long R, int D, bool) {
+  using T = typename Piece<W>::T;
+  constexpr int K = Op::kPools;
+  const Op o = op.ready();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < N;
+       e += stride) {
+    const int row = __ldg(rows + e);
+    if (!live(row, R)) continue;
+    const long long po = (long long)row * D;
+    const long long vo = e * D;
+    for (int d = 0; d < D; d += W) {
+      const T g = *reinterpret_cast<const T*>(vals + vo + d);
+      T s[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        s[k] = *reinterpret_cast<const T*>(pools.p[k] + po + d);
+      apply(o, g, s);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        *reinterpret_cast<T*>(pools.p[k] + po + d) = s[k];
+    }
+  }
+}
+
+// the kernel for a width, route, unroll and group; nullptr if there is none
+template <class Op>
+RowsKernel<Op> pick(int D, int vec, int unroll, int group) {
+  if (vec && D == 16 && group == 1) {
+    switch (unroll) {
+      case 1: return rows_vec16_kernel<Op, 1>;
+      case 2: return rows_vec16_kernel<Op, 2>;
+      case 4: return rows_vec16_kernel<Op, 4>;
+      default: return nullptr;
+    }
+  }
+  if (!vec && D == 1) {
+    switch (unroll * 8 + group) {
+      case 9: return rows_wide_kernel<Op, 1, 1>;
+      case 17: return rows_wide_kernel<Op, 2, 1>;
+      case 12: return rows_wide_kernel<Op, 1, 4>;
+      case 20: return rows_wide_kernel<Op, 2, 4>;
+      default: return nullptr;
+    }
+  }
+  if (unroll != 1 || group != 1) return nullptr;
+  return vec ? rows_any_kernel<Op, 4> : rows_any_kernel<Op, 1>;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <class Op>
+int launch_rows(const Op& op, const Pools<Op::kPools>& pools, long long R,
+                int D, const void* rows_v, const void* vals_v, long long N,
+                int vec, int blocks, int threads, int unroll, int group,
+                void* stream) {
+  if (N * D == 0) return 0;
+  const auto* rows = static_cast<const int32_t*>(rows_v);
+  const auto* vals = static_cast<const float*>(vals_v);
+  if (blocks <= 0 || threads <= 0 || threads > kMaxThreads ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidConfiguration;
+  if (vec) {
+    bool ok = D % 4 == 0 && aligned16(vals);
+    for (int k = 0; k < Op::kPools; ++k) ok = ok && aligned16(pools.p[k]);
+    if (!ok) return (int)cudaErrorMisalignedAddress;
+  }
+  const RowsKernel<Op> kernel = pick<Op>(D, vec, unroll, group);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const bool entries_aligned = aligned16(rows) && aligned16(vals);
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      op, pools, rows, vals, N, R, D, entries_aligned);
+  return (int)cudaGetLastError();
+}
+
+template <class Op>
+int blocks_per_sm(int D, int vec, int threads, int unroll, int group) {
+  const RowsKernel<Op> kernel = pick<Op>(D, vec, unroll, group);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
+// `vec` selects the vector route (the caller checked D % 4 == 0 and the
+// alignment of the pools and vals; refused here otherwise); blocks,
+// threads, unroll and group come from `update_plan`.
 extern "C" int repro_adagrad_rows_f32(
     void* params, void* acc, long long R, int D, const void* rows,
-    const void* vals, long long N, float neg_lr, float eps, void* stream) {
-  if (N * D == 0) return 0;
-  const int threads = 256;
-  adagrad_rows_kernel<<<blocks_for(N * D, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(params), static_cast<float*>(acc), R, D,
-      static_cast<const int32_t*>(rows), static_cast<const float*>(vals), N,
-      neg_lr, eps);
-  return (int)cudaGetLastError();
+    const void* vals, long long N, float neg_lr, float eps, int vec,
+    int blocks, int threads, int unroll, int group, void* stream) {
+  const AdagradOp op{neg_lr, eps};
+  const Pools<2> pools{{static_cast<float*>(params),
+                        static_cast<float*>(acc)}};
+  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, threads,
+                     unroll, group, stream);
 }
 
 extern "C" int repro_adam_rows_f32(
     void* params, void* m, void* v, long long R, int D, const void* rows,
     const void* vals, const void* bias, long long N, float neg_lr, float b1,
     float one_minus_b1, float b2, float one_minus_b2, float eps, float wd,
-    void* stream) {
-  if (N * D == 0) return 0;
-  const int threads = 256;
-  adam_rows_kernel<<<blocks_for(N * D, threads), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(params), static_cast<float*>(m),
-      static_cast<float*>(v), R, D, static_cast<const int32_t*>(rows),
-      static_cast<const float*>(vals), static_cast<const float*>(bias), N,
-      neg_lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd);
-  return (int)cudaGetLastError();
+    int vec, int blocks, int threads, int unroll, int group, void* stream) {
+  const AdamOp op{neg_lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd,
+                  static_cast<const float*>(bias), 0.0f, 0.0f};
+  const Pools<3> pools{{static_cast<float*>(params), static_cast<float*>(m),
+                        static_cast<float*>(v)}};
+  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, threads,
+                     unroll, group, stream);
+}
+
+// Resident blocks per SM of the kernel that (D, vec, unroll, group)
+// selects, at `threads` per block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError.
+extern "C" int repro_rows_blocks_per_sm(int adam, int D, int vec,
+                                        int threads, int unroll, int group) {
+  return adam ? blocks_per_sm<AdamOp>(D, vec, threads, unroll, group)
+              : blocks_per_sm<AdagradOp>(D, vec, threads, unroll, group);
 }

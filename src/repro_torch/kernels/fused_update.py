@@ -1,19 +1,23 @@
 """Fused row-wise optimizer updates: touched rows only, in place.
 
 Port of ``repro/kernels/fused_update.py``. Consumes the deduped COO row
-gradients of ``fused_embedding.sparse_row_grads`` (``rows`` (N,) store rows
-with a sentinel tail ``>= R``, ``vals`` (N, D) f32 summed cotangents) and
-applies row-wise adagrad (K2) or lazy row-wise adam (K3) to exactly those
-rows of the parameter pool and its moment pools.
+gradients of ``fused_embedding.sparse_row_grads`` (``rows`` (N,) store rows,
+where entries ``>= R`` are padding, ``vals`` (N, D) f32 summed cotangents)
+and applies row-wise adagrad (K2) or lazy row-wise adam (K3) to exactly
+those rows of the parameter pool and its moment pools.
 
 Unlike the JAX reference, which returns new arrays, both versions update
 the pools in place: the full-width pools are 211 MB each, and a touched-rows
 update should move only the touched rows.
 
-* CUDA tensors launch K2/K3 (``csrc/fused_update.cu``).
+* CUDA tensors launch K2/K3 (``csrc/fused_update.cu``). ``update_route``
+  picks the vector route (float4 pieces of a row) or the scalar route from
+  the width and the alignment of the arrays; ``update_plan`` sizes the
+  grid, one wave at most, from the entry count, the width and the SM
+  count.
 * CPU tensors run the plain versions ``adagrad_rows_plain`` /
   ``adam_rows_plain``: the reference's gather → row-wise expression →
-  scatter, with the sentinel rows masked out explicitly (JAX's scatter
+  scatter, with the padding entries masked out explicitly (JAX's scatter
   drops them; ``index_put_`` would raise on the CPU and device-assert on
   CUDA).
 
@@ -24,16 +28,86 @@ contract) they agree within ULP bounds.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib
 
+# Launch geometry, chosen by ``scripts/k2_k3_unroll_sweep.py`` on the H100
+# (PERF.md): (threads per block, unroll, group) per kernel. unroll is
+# the rows (D=16) or entry groups (D=1) each thread keeps in flight, group
+# the consecutive entries a D=1 thread takes per step (1, or 4 for one int4
+# of row ids and one float4 of gradients).
+VECTOR16_GEOMETRY = (256, 1, 1)
+WIDE_GEOMETRY = (256, 1, 1)
+OTHER_THREADS = 256       # any other width: a thread per entry
+THREADS_PER_SM = 2048     # an SM's resident threads: the grid's one-wave cap
+VEC_ROWS_PER_WARP = 8     # D=16: 4 lanes of a warp own a row, one float4 each
+
+
+class Plan(NamedTuple):
+    blocks: int
+    threads: int
+    unroll: int
+    group: int
+
+
+def update_route(D: int, *arrays: torch.Tensor) -> str:
+    """``"vector"`` when ``D % 4 == 0`` and every array (the pools and
+    ``vals``) starts on 16 bytes: the kernels move float4 pieces of a row.
+    Otherwise ``"scalar"`` (the wide D=1 pool always)."""
+    if D % 4 == 0 and all(a.data_ptr() % 16 == 0 for a in arrays):
+        return "vector"
+    return "scalar"
+
+
+def update_plan(N: int, D: int, sm_count: int, route: str = "vector", *,
+                geometry: Optional[Tuple[int, int, int]] = None,
+                threads_per_sm: int = THREADS_PER_SM) -> Plan:
+    """The K2/K3 launch over ``N`` entries of a width-``D`` pool on a card
+    of ``sm_count`` SMs.
+
+    D=16 on the vector route: a warp takes ``8 * unroll`` rows per tile.
+    D=1 (scalar route): a thread takes ``unroll`` steps of ``group``
+    entries. Any other case: a thread per entry. The grid covers that work
+    and holds no more than ``threads_per_sm`` threads per SM: one wave,
+    walked by a grid-stride loop. A function of the shape alone; 0 blocks
+    when there is nothing to do. ``geometry`` lets a sweep try others."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    if route == "vector" and D == 16:
+        threads, unroll, group = geometry or VECTOR16_GEOMETRY
+        work = 32 * cdiv(N, VEC_ROWS_PER_WARP * unroll)
+    elif route == "scalar" and D == 1:
+        threads, unroll, group = geometry or WIDE_GEOMETRY
+        work = cdiv(cdiv(N, group), unroll)
+    else:
+        threads = geometry[0] if geometry else OTHER_THREADS
+        unroll, group, work = 1, 1, N
+    if N <= 0 or D <= 0:
+        return Plan(0, threads, unroll, group)
+    cap = sm_count * max(1, threads_per_sm // threads)
+    return Plan(min(cdiv(work, threads), cap), threads, unroll, group)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_args(params: torch.Tensor, vals: torch.Tensor, N: int,
+                 *pools: torch.Tensor):
+    """(vec, blocks, threads, unroll, group) for the C entry points."""
+    D = params.shape[1]
+    route = update_route(D, params, vals, *pools)
+    plan = update_plan(N, D, _sm_count(params.device.index), route)
+    return (int(route == "vector"), *plan)
+
 
 def _live(params: torch.Tensor, rows: torch.Tensor,
           vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows below ``R`` (as int64) and their values; the sentinel tail goes."""
+    """Rows below ``R`` (as int64) and their values; the padding goes."""
     live = rows < params.shape[0]
     return rows[live].long(), vals[live]
 
@@ -79,16 +153,23 @@ def adagrad_rows_cuda(params, acc, rows, vals, *, lr: float, eps: float):
 
     Replaces the TPU kernel ``_adagrad_kernel`` of
     ``repro/kernels/fused_update.py``. Bound by bytes: 5 x D x 4 B per live
-    row, at most about 17 MB a call at full Wide&Deep width; one thread per
-    (row, d) keeps every access a contiguous row segment, and unique rows
-    need no atomics.
+    row plus 4 B per entry, 7.7 MB (2.30 us at 3.35 TB/s) for the ~23,400
+    live rows of a full-width Wide&Deep batch. The grid comes from
+    ``update_plan`` (at most one wave of the SMs' threads): float4 pieces
+    of a row on the vector route, single words on the scalar route, every
+    load of a thread in flight at once; padding entries cost one row-id
+    load. One launch per call with work; nothing is launched for N=0.
     """
     _check_rows("adagrad_row_update", params, rows, vals, acc)
+    N = rows.shape[0]
+    launch = _launch_args(params, vals, N, acc)
+    if launch[1] == 0:
+        return
     lib = cuda_lib.load()
     R, D = params.shape
     status = lib.repro_adagrad_rows_f32(
         params.data_ptr(), acc.data_ptr(), R, D, rows.data_ptr(),
-        vals.data_ptr(), rows.shape[0], -lr, eps,
+        vals.data_ptr(), N, -lr, eps, *launch,
         torch.cuda.current_stream(params.device).cuda_stream)
     cuda_lib.check(status, "adagrad_row_update")
     cuda_lib.LAUNCHES["adagrad_row_update"] += 1
@@ -144,21 +225,26 @@ def adam_rows_cuda(params, m, v, rows, vals, bias, *, lr, b1, b2, eps, wd):
 
     Replaces the TPU kernel ``_adam_kernel`` of
     ``repro/kernels/fused_update.py``. Bound by bytes: 7 x D x 4 B per live
-    row, at most about 24 MB a call at full Wide&Deep width; the same
-    one-thread-per-(row, d) layout as K2, with the bias pair read from
-    device memory.
+    row plus 4 B per entry, 10.7 MB (3.20 us at 3.35 TB/s) for the ~23,400
+    live rows of a full-width Wide&Deep batch. The same routes and plan as
+    K2, with the bias pair read from device memory once per thread.
     """
     _check_rows("adam_row_update", params, rows, vals, m, v)
     if bias.device != params.device or bias.dtype != torch.float32 \
             or tuple(bias.shape) != (2,) or not bias.is_contiguous():
         raise ValueError("adam_row_update: bias must be a contiguous (2,) "
                          "float32 tensor on the params' device")
+    N = rows.shape[0]
+    launch = _launch_args(params, vals, N, m, v)
+    if launch[1] == 0:
+        return
     lib = cuda_lib.load()
     R, D = params.shape
     status = lib.repro_adam_rows_f32(
         params.data_ptr(), m.data_ptr(), v.data_ptr(), R, D, rows.data_ptr(),
-        vals.data_ptr(), bias.data_ptr(), rows.shape[0], -lr, b1, 1 - b1, b2,
-        1 - b2, eps, wd, torch.cuda.current_stream(params.device).cuda_stream)
+        vals.data_ptr(), bias.data_ptr(), N, -lr, b1, 1 - b1, b2, 1 - b2,
+        eps, wd, *launch,
+        torch.cuda.current_stream(params.device).cuda_stream)
     cuda_lib.check(status, "adam_row_update")
     cuda_lib.LAUNCHES["adam_row_update"] += 1
 

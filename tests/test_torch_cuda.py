@@ -4,12 +4,14 @@ Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with one, run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 K1 equals its plain version bit for bit, on the card and on the CPU. K2
-and K3 are held to their plain versions within the ULP bounds of the
-reference's fused-update tests (params 64, moments 4), on the card and on
-the CPU: the kernels spell their arithmetic with the uncontracted ``_rn``
-intrinsics in the plain versions' order, but PyTorch's CPU ``sqrt``
-(vectorised) is not always correctly rounded, so the CPU result may sit an
-ULP away. Rows the update does not touch stay bit-identical. A reduced
+and K3 equal their plain versions on the card bit for bit (the kernels
+spell their arithmetic with the uncontracted ``_rn`` intrinsics in the
+plain versions' order), on both routes, with padding entries anywhere and
+at edge shapes; against the plain versions on the CPU they are held to
+the ULP bounds of the reference's fused-update tests (params 64, moments
+4): PyTorch's CPU ``sqrt`` (vectorised) is not always correctly rounded,
+so the CPU result may sit an ULP away. Rows the update does not touch stay
+bit-identical. A reduced
 train step on the card matches the CPU within 2e-5 and is deterministic.
 
 K4 and K5 agree with their plain versions within 2e-5 in f32 and, in
@@ -91,65 +93,123 @@ def test_k1_matches_plain(dev, combiner, weighted, K, D):
     assert torch.equal(got, plain_dev)
 
 
-def _rows(rng, R, n, live):
-    rows = np.full((n,), R, np.int32)
-    rows[:live] = rng.choice(R, live, replace=False)
+def _rows(rng, R, n, live, tail):
+    """``n`` entries: ``live`` unique rows in random order, the rest padding
+    (values >= R) interleaved among them, and a padding tail of ``tail``."""
+    rows = (R + rng.integers(0, 1000, n)).astype(np.int32)
+    rows[rng.choice(n - tail, live, replace=False)] = \
+        rng.choice(R, live, replace=False)
     return rows
 
 
 PARAM_ULP, MOMENT_ULP = 64, 4
+K2_K3_HYPER = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8)
 
 
-@pytest.mark.parametrize("state", ["fresh", "carried"])
-@pytest.mark.parametrize("D", [16, 1])
-def test_k2_k3_match_plain(dev, D, state):
-    rng = np.random.default_rng(1)
-    R, n = 5000, 900
-    rows = torch.from_numpy(_rows(rng, R, n, 700))
-    vals = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+def _k2_k3_on_card(dev, p0, a0, m0, rows, vals, wd):
+    """K2 and K3 through their entry points on the card, each held bit for
+    bit to its plain version on the card, one launch per call with work,
+    rows not named left bit-identical. Returns the two kernels' outputs."""
+    R = p0.shape[0]
+    untouched = torch.ones(R, dtype=torch.bool, device=dev)
+    untouched[rows[(rows >= 0) & (rows < R)].long()] = False
+    want_launches = 1 if rows.shape[0] else 0
+    outs = []
+    for kind, start in (("adagrad", (p0, a0)), ("adam", (p0, m0, a0))):
+        key = f"{kind}_row_update"
+        got = [x.clone() for x in start]
+        want = [x.clone() for x in start]
+        cuda_lib.reset_launches()
+        if kind == "adagrad":
+            fu.adagrad_row_update(*got, rows, vals, lr=0.05)
+            fu.adagrad_rows_plain(*want, rows, vals, lr=0.05, eps=1e-10)
+        else:
+            fu.adam_row_update(*got, rows, vals, count=3, weight_decay=wd,
+                               **K2_K3_HYPER)
+            fu.adam_rows_plain(*want, rows, vals,
+                               fu.adam_bias(3, 0.9, 0.999, dev), wd=wd,
+                               **K2_K3_HYPER)
+        torch.cuda.synchronize()
+        assert cuda_lib.LAUNCHES[key] == want_launches, key
+        for i, (g, w, s0) in enumerate(zip(got, want, start)):
+            assert torch.equal(g, w), (key, i)
+            assert torch.equal(g[untouched], s0[untouched]), (key, i)
+        outs.append(got)
+    return outs
+
+
+def _pools(rng, R, D, state):
     p0 = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
     u = torch.from_numpy(rng.uniform(0, 1, (R, D)).astype(np.float32))
     a0 = u if state == "carried" else torch.zeros_like(u)
     m0 = u - 0.5 if state == "carried" else torch.zeros_like(u)
+    return p0, a0, m0
+
+
+@pytest.mark.parametrize("state", ["fresh", "carried"])
+@pytest.mark.parametrize("D", [16, 1, 4, 6])
+def test_k2_k3_match_plain(dev, D, state):
+    """Unsorted live rows with padding interleaved and as a tail: bit for
+    bit against the plain version on the card, within the ULP bounds of
+    the plain version on the CPU. D=16 and D=4 take the vector route, D=1
+    and D=6 (the generic width) the scalar route."""
+    rng = np.random.default_rng(1)
+    R, n = 5000, 900
+    rows = torch.from_numpy(_rows(rng, R, n, 500, 200))
+    vals = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    p0, a0, m0 = _pools(rng, R, D, state)
     wd = 0.01 if state == "carried" else 0.0
-    untouched = torch.ones(R, dtype=torch.bool)
-    untouched[rows[rows < R].long()] = False
-    bounds = (PARAM_ULP, MOMENT_ULP, MOMENT_ULP)
-
-    def compare(kernel_out, plain_outs, start, tag):
-        for i, (got, bound, s0) in enumerate(zip(kernel_out, bounds, start)):
-            got = got.cpu()
-            for where, outs in plain_outs:
-                assert_ulp_close(got.numpy(), outs[i].cpu().numpy(), bound,
-                                 f"{tag} output {i} vs plain on {where}")
-            assert torch.equal(got[untouched], s0[untouched]), (tag, i)
-
-    # K2 (adagrad)
-    cuda_lib.reset_launches()
-    kd = (p0.to(dev, copy=True), a0.to(dev, copy=True))
-    fu.adagrad_row_update(*kd, rows.to(dev), vals.to(dev), lr=0.05)
-    assert cuda_lib.LAUNCHES["adagrad_row_update"] == 1
-    pd, ad = p0.to(dev, copy=True), a0.to(dev, copy=True)
-    fu.adagrad_rows_plain(pd, ad, rows.to(dev), vals.to(dev), lr=0.05,
-                          eps=1e-10)
+    cpu = [p0, a0, m0]
+    assert fu.update_route(D, *(x.to(dev) for x in (*cpu, vals))) == (
+        "vector" if D % 4 == 0 else "scalar")
+    k2, k3 = _k2_k3_on_card(dev, *(x.to(dev) for x in (*cpu, rows, vals)),
+                            wd)
     pc, ac = p0.clone(), a0.clone()
     fu.adagrad_row_update(pc, ac, rows, vals, lr=0.05)
-    torch.cuda.synchronize()
-    compare(kd, [("card", (pd, ad)), ("cpu", (pc, ac))], (p0, a0), "K2")
+    pa, ma, va = p0.clone(), m0.clone(), a0.clone()
+    fu.adam_row_update(pa, ma, va, rows, vals, count=3, weight_decay=wd,
+                       **K2_K3_HYPER)
+    bounds = (PARAM_ULP, MOMENT_ULP, MOMENT_ULP)
+    for tag, got, want in (("K2", k2, (pc, ac)), ("K3", k3, (pa, ma, va))):
+        for i, (g, w, bound) in enumerate(zip(got, want, bounds)):
+            assert_ulp_close(g.cpu().numpy(), w.numpy(), bound,
+                             f"{tag} output {i} vs plain on the cpu")
 
-    # K3 (lazy adam)
-    kw = dict(lr=0.01, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
-    kd = (p0.to(dev, copy=True), m0.to(dev, copy=True), a0.to(dev, copy=True))
-    fu.adam_row_update(*kd, rows.to(dev), vals.to(dev), lr=0.01, count=3,
-                       weight_decay=wd)
-    assert cuda_lib.LAUNCHES["adam_row_update"] == 1
-    pd = (p0.to(dev, copy=True), m0.to(dev, copy=True), a0.to(dev, copy=True))
-    fu.adam_rows_plain(*pd, rows.to(dev), vals.to(dev),
-                       fu.adam_bias(3, 0.9, 0.999, dev), **kw)
-    pc = (p0.clone(), m0.clone(), a0.clone())
-    fu.adam_row_update(*pc, rows, vals, lr=0.01, count=3, weight_decay=wd)
-    torch.cuda.synchronize()
-    compare(kd, [("card", pd), ("cpu", pc)], (p0, m0, a0), "K3")
+
+@pytest.mark.parametrize("case", ["empty", "few", "ragged", "all-padding"])
+@pytest.mark.parametrize("D", [16, 1])
+def test_k2_k3_edge_shapes(dev, D, case):
+    """N = 0 (no launch), N < 32, N no multiple of a block's tile, and
+    every entry padding (one launch that changes nothing)."""
+    rng = np.random.default_rng(2)
+    R = 3000
+    n, live = {"empty": (0, 0), "few": (5, 3), "ragged": (2 * 1024 + 37, 900),
+               "all-padding": (700, 0)}[case]
+    rows = torch.from_numpy(_rows(rng, R, n, live, 0 if n < 8 else 8))
+    vals = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    args = [x.to(dev) for x in (*_pools(rng, R, D, "carried"), rows, vals)]
+    k2, k3 = _k2_k3_on_card(dev, *args, wd=0.01)
+    if live == 0:
+        assert torch.equal(k2[0], args[0]) and torch.equal(k3[0], args[0])
+
+
+def test_k2_k3_unaligned_pool_takes_scalar_route(dev):
+    """A D=16 pool whose data pointer is not 16-byte aligned (a view one
+    element into a flat buffer) takes the scalar route, bit for bit."""
+    rng = np.random.default_rng(3)
+    R, D, n = 4000, 16, 600
+    p0, a0, m0 = _pools(rng, R, D, "carried")
+    flat = torch.zeros(R * D + 1, device=dev)
+    params = flat[1:].view(R, D)
+    params.copy_(p0)
+    assert params.data_ptr() % 16 == 4 and params.is_contiguous()
+    rows = torch.from_numpy(_rows(rng, R, n, 400, 100)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32)
+                            ).to(dev)
+    a0, m0 = a0.to(dev), m0.to(dev)
+    assert fu.update_route(D, params, a0, m0, vals) == "scalar"
+    assert fu.update_route(D, p0.to(dev), a0, m0, vals) == "vector"
+    _k2_k3_on_card(dev, params, a0, m0, rows, vals, wd=0.01)
 
 
 @pytest.mark.parametrize("opt_name", ["adagrad", "adam"])

@@ -89,6 +89,118 @@ def test_adam_rows_match_reference(seed, count, wd):
         np.testing.assert_array_equal(got.numpy()[keep], before[keep])
 
 
+def _interleaved_case(D, seed, R=300, n=160, live=90, tail=30):
+    """Unsorted live rows with padding entries (any value >= R) interleaved
+    among them and as a tail, as numpy; the padding carries nonzero vals."""
+    rng = np.random.default_rng(seed)
+    rows = (R + rng.integers(0, 1000, n)).astype(np.int32)
+    rows[rng.integers(0, n - tail, 4)] = np.iinfo(np.int32).max
+    at = rng.choice(n - tail, live, replace=False)
+    rows[at] = rng.choice(R, live, replace=False)
+    vals = rng.standard_normal((n, D)).astype(np.float32)
+    params = rng.standard_normal((R, D)).astype(np.float32)
+    m = (0.1 * rng.standard_normal((R, D))).astype(np.float32)
+    v = rng.uniform(0.0, 0.5, (R, D)).astype(np.float32)
+    return params, m, v, rows, vals
+
+
+@pytest.mark.parametrize("kind", ["adagrad", "adam"])
+@pytest.mark.parametrize("D", [16, 1])
+def test_rows_with_interleaved_padding_match_reference(D, kind):
+    """K2/K3's plain versions skip padding wherever it stands, as the
+    reference's scatter drops it."""
+    params, m, v, rows, vals = _interleaved_case(D, seed=D)
+    assert (rows[:-30] >= params.shape[0]).any() and \
+        (np.diff(rows[rows < params.shape[0]]) < 0).any()
+    if kind == "adagrad":
+        state, hyper = (v,), dict(lr=0.05)
+        want = jfu.adagrad_row_update(
+            *(jnp.asarray(x) for x in (params, v, rows, vals)), method="xla",
+            **hyper)
+    else:
+        state, hyper = (m, v), dict(lr=0.01, count=5, weight_decay=0.01)
+        want = jfu.adam_row_update(
+            *(jnp.asarray(x) for x in (params, m, v, rows, vals)),
+            method="xla", **hyper)
+    got = [torch.from_numpy(x.copy()) for x in (params, *state)]
+    tops.fused_row_update(got[0], torch.from_numpy(rows),
+                          torch.from_numpy(vals), *got[1:], kind=kind,
+                          **hyper)
+    keep = _untouched(params.shape[0], rows)
+    for i, (g, w, before) in enumerate(zip(got, want, (params, *state))):
+        assert_ulp_close(g.numpy(), np.asarray(w),
+                         PARAM_ULP if i == 0 else MOMENT_ULP, f"{kind} {i}")
+        np.testing.assert_array_equal(g.numpy()[keep], before[keep])
+
+
+def test_update_plan_and_route_follow_the_shape_alone():
+    """K2/K3's launch geometry is a function of (N, D, SM count, route), and
+    the route of the width and the arrays' alignment."""
+    plan, sms = tfu.update_plan, 132
+
+    def cdiv(a, b):
+        return -(-a // b)
+
+    def wave(threads):
+        return sms * (tfu.THREADS_PER_SM // threads)
+
+    # the main path: 512 x 26 x 4 entries, deep pool D=16 and wide pool D=1
+    N = 512 * 26 * 4
+    T, U, _ = tfu.VECTOR16_GEOMETRY
+    assert plan(N, 16, sms, "vector") == (
+        min(cdiv(32 * cdiv(N, 8 * U), T), wave(T)), T, U, 1)
+    Tw, Uw, Gw = tfu.WIDE_GEOMETRY
+    assert plan(N, 1, sms, "scalar") == (
+        min(cdiv(cdiv(cdiv(N, Gw), Uw), Tw), wave(Tw)), Tw, Uw, Gw)
+    assert plan(N, 16, sms, "vector").blocks <= wave(T)
+    for n in (0, -1):
+        assert plan(n, 16, sms).blocks == 0
+        assert plan(n, 1, sms, "scalar").blocks == 0
+    assert plan(5, 16, sms).blocks == 1 and plan(5, 1, sms, "scalar").blocks == 1
+    # other widths and the scalar D=16 route: a thread per entry
+    To = tfu.OTHER_THREADS
+    for D, route in ((6, "scalar"), (4, "vector"), (16, "scalar")):
+        assert plan(1000, D, sms, route) == (cdiv(1000, To), To, 1, 1)
+        assert plan(10 ** 8, D, sms, route) == (wave(To), To, 1, 1)
+        assert plan(1000, D, sms, route, geometry=(64, 4, 4)) == \
+            (cdiv(1000, 64), 64, 1, 1)
+    # pinned geometries: tiles of 8 x unroll rows (D=16), steps of unroll x
+    # group entries (D=1); the cap is threads_per_sm resident threads per SM
+    assert plan(1000, 16, sms, geometry=(128, 4, 1)) == (8, 128, 4, 1)
+    assert plan(1000, 16, sms, geometry=(128, 1, 1)) == (32, 128, 1, 1)
+    assert plan(1000, 16, 4, geometry=(128, 4, 1),
+                threads_per_sm=128) == (4, 128, 4, 1)
+    assert plan(1000, 1, sms, "scalar", geometry=(64, 2, 4)) == \
+        (2, 64, 2, 4)                         # 125 threads of 8 entries
+    assert plan(1000, 1, sms, "scalar", geometry=(64, 1, 1)) == \
+        (16, 64, 1, 1)
+    assert plan(10 ** 7, 1, 66, "scalar", geometry=(64, 1, 1),
+                threads_per_sm=256) == (66 * 4, 64, 1, 1)
+    for n in (1, 31, 33, 1000, 53248, 10 ** 6):
+        for D, route in ((16, "vector"), (1, "scalar"), (6, "scalar")):
+            p = plan(n, D, sms, route)
+            cap = wave(p.threads)
+            assert 1 <= p.blocks <= cap
+            if p.blocks < cap:       # uncapped: the grid covers the work
+                per_thread = {16: 8 * p.unroll / 32,
+                              1: p.unroll * p.group, 6: 1}[D]
+                assert p.blocks * p.threads * per_thread >= n
+
+    # the route: D % 4 == 0 and every array on 16 bytes -> vector
+    def pool(R, D, offset=0):
+        return torch.zeros(R * D + 4)[offset:offset + R * D].view(R, D)
+
+    route = tfu.update_route
+    assert route(16, pool(8, 16), pool(3, 16)) == "vector"
+    assert route(4, pool(8, 4), pool(3, 4), pool(8, 4)) == "vector"
+    assert route(1, pool(8, 1), pool(3, 1)) == "scalar"
+    assert route(6, pool(8, 6), pool(3, 6)) == "scalar"
+    assert route(16, pool(8, 16, 1), pool(3, 16)) == "scalar"
+    assert route(16, pool(8, 16), pool(3, 16, 2)) == "scalar"
+    assert route(16, pool(8, 16), pool(3, 16), pool(8, 16, 3)) == "scalar"
+    assert route(16, pool(8, 16), pool(3, 16), pool(8, 16, 4)) == "vector"
+
+
 def test_adam_bias_pair_matches_reference():
     for count in (1, 2, 10, 1000):
         tc = jnp.asarray(count, jnp.float32)
