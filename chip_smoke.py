@@ -33,7 +33,7 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    ``torch.nn.functional.embedding_bag`` (a yardstick the port never calls).
    K2/K3 on both pools of the step: the deep D=16 pool, which must take
    the vector route, and the wide D=1 pool, the scalar route, with
-   ``update_plan``'s grid and its waves at the kernels' occupancy.
+   ``update_plan``'s grid.
 6. a ``torch.profiler`` breakdown of the fused adagrad step: device time,
    idle share, the kernels that take the most device time, and K1 and K2
    (both pools) found by name, with their device time per call; fails if
@@ -140,9 +140,7 @@ def ulp_distance(a, b) -> int:
 
 def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     """Median device time of ``fn`` in ms over ``iters`` launches, each
-    timed alone with CUDA events after a write that evicts the L2 (``flush``
-    is a tensor larger than the L2, zeroed before each launch, or a
-    callable run there instead).
+    timed alone with CUDA events after a write that evicts the L2.
 
     A spin kernel first keeps the card busy while the host enqueues every
     launch, so no host-side launch gap lands between a pair of events (a
@@ -156,7 +154,7 @@ def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     for s, e in zip(starts, ends):
-        flush() if callable(flush) else flush.zero_()
+        flush.zero_()
         s.record()
         fn()
         e.record()
@@ -197,36 +195,26 @@ def clone_state(state, device):
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-def ptxas_reported():
-    """Patterns on the mangled names of the redesigned kernels -> report
-    names. K2/K3 at the unroll the main path launches."""
-    from repro_torch.kernels import fused_update as fu
-    _, u16, _ = fu.VECTOR16_GEOMETRY
-    _, u1, g1 = fu.WIDE_GEOMETRY
-    rows = {}
-    for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3")):
-        rows[f"rows_vec16_kernelI\\w*{op}ELi{u16}EE"] = \
-            f"{k} D=16 vector (unroll {u16})"
-        rows[f"rows_wide_kernelI\\w*{op}ELi{u1}ELi{g1}EE"] = \
-            f"{k} D=1 scalar (unroll {u1}, group {g1})"
-    return {
-        "flash_tc_kernelILi128": "K4 tensor-core D=128",
-        "flash_tc_kernelILi64": "K4 tensor-core D=64",
-        "decode_split_kernelI13__nv_bfloat16fE":
-            "K5 split (bf16 q, f32 cache)",
-        "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
-        **rows}
+# patterns on the mangled names of the redesigned kernels -> report names
+PTXAS_REPORTED = {
+    "flash_tc_kernelILi128": "K4 tensor-core D=128",
+    "flash_tc_kernelILi64": "K4 tensor-core D=64",
+    "decode_split_kernelI13__nv_bfloat16fE": "K5 split (bf16 q, f32 cache)",
+    "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
+    **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
+       for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
+       for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"))},
+}
 
 
 def ptxas_report(build_log):
     """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
-    kernels named by ``ptxas_reported``, one string per kernel."""
+    kernels named in PTXAS_REPORTED, one string per kernel."""
     import re
-    reported = ptxas_reported()
     out, current = {}, None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            current = next((name for key, name in reported.items()
+            current = next((name for key, name in PTXAS_REPORTED.items()
                             if re.search(key, line)), None)
         elif current and ("spill" in line or "Used" in line):
             out.setdefault(current, []).append(
@@ -245,7 +233,7 @@ def phase_build(report):
                        "library": str(lib.relative_to(ROOT)),
                        "ptxas": ptxas, "log": build_log}
     log(f"phase 1 build: {lib.name} in {report['build']['seconds']:.1f} s")
-    missing = set(ptxas_reported().values()) - set(ptxas)
+    missing = set(PTXAS_REPORTED.values()) - set(ptxas)
     check(not missing, f"no ptxas lines for {missing}")
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
@@ -581,10 +569,10 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
             "ms": deep["ms"], "plain_ms": deep["plain_ms"],
             "bound_ms": deep["bound_ms"], "bound_by": deep["bound_by"],
             "library_ms": None, "at": f"D={D}, {deep['route']} route",
-            "plan": deep["plan"], "wide_ms": wide["ms"],
+            "blocks": deep["blocks"], "wide_ms": wide["ms"],
             "wide_plain_ms": wide["plain_ms"],
             "wide_bound_ms": wide["bound_ms"],
-            "wide_bound_by": wide["bound_by"], "wide_plan": wide["plan"]})
+            "wide_bound_by": wide["bound_by"], "wide_blocks": wide["blocks"]})
     report["kernels"] = kernels
     report["timing"] = {
         "l2_flushed": True, "iters": TIMING_ITERS,
@@ -608,10 +596,8 @@ def _time_k2_k3(dev, cfg, D, flush):
     pool, beside their plain versions and bounds (bytes: 5 and 7 words per
     live row element plus a row id per entry). The route must be the main
     path's (vector for D=16, scalar for D=1); ``update_plan``'s grid is
-    reported with the kernels' resident blocks per SM and the waves it
-    takes."""
+    reported."""
     import torch
-    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import fused_update as fu
     p0, rows, vals = _sparse_rows(cfg, dev, D)
     R, N = p0.shape[0], rows.shape[0]
@@ -622,18 +608,13 @@ def _time_k2_k3(dev, cfg, D, flush):
     want = "vector" if D % 4 == 0 else "scalar"
     check(route == want, f"K2/K3 at D={D} take the {route} route, not {want}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = fu.update_plan(N, D, sms, route)
-    lib = cuda_lib.load()
+    blocks = fu.update_plan(N, D, sms, route)
     out = {"live_rows": n_live, "entries": N}
     p_k, a_k = p0.clone(), acc.clone()
     bias = fu.adam_bias(7, 0.9, 0.999, dev)
     kw = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     for adam, kernel, words, flops in ((0, "adagrad_row_update", 5, 6),
                                        (1, "adam_row_update", 7, 14)):
-        per_sm = lib.repro_rows_blocks_per_sm(adam, D, int(route == "vector"),
-                                              *plan[1:])
-        check(per_sm > 0, f"{kernel} D={D}: occupancy query failed "
-              f"({per_sm})")
         if adam:
             k_ms = time_ms(lambda: fu.adam_rows_cuda(
                 p_k, m_k, v_k, rows, vals, bias, **kw), flush)
@@ -646,10 +627,8 @@ def _time_k2_k3(dev, cfg, D, flush):
                 p_k, a_k, rows, vals, lr=3e-3, eps=1e-10), flush)
         b_ms, b_by = bound_ms(n_live * D * 4 * words + N * 4 + 8 * adam,
                               n_live * D * flops)
-        out[kernel] = {"route": route, "plan": plan._asdict(),
-                       "blocks_per_sm": per_sm,
-                       "waves": plan.blocks / (per_sm * sms),
-                       "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        out[kernel] = {"route": route, "blocks": blocks,
+                       "threads": fu.THREADS, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                        "bound_by": b_by}
     return out
 

@@ -1,35 +1,27 @@
 #!/usr/bin/env python3
-"""Time K2 (row-wise adagrad) and K3 (lazy row-wise adam) over launch
-geometries on one CUDA card, and take apart where their time goes.
+"""Take apart where the time of K2 (row-wise adagrad) and K3 (lazy row-wise
+adam) goes on one CUDA card.
 
-    python3 scripts/k2_k3_unroll_sweep.py [--baseline-lib PATH]
+    python3 scripts/k2_k3_floors.py [--baseline-lib PATH]
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 On the deduped rows of a real full-width Wide&Deep batch (the deep D=16
-pool on the vector route, the wide D=1 pool on the scalar route):
+pool on the vector route, the wide D=1 pool on the scalar route), each
+kernel through its C entry point at ``update_plan``'s grid, first held bit
+for bit against the plain version, then timed:
 
-1. geometry: each kernel through its C entry point at each block size,
-   unroll (rows, or groups of entries, in flight per thread) and, for D=1,
-   group (1 entry, or 4 through one int4 and one float4, per thread and
-   step), with two grids: one wave (the SM count times the blocks per SM
-   that the occupancy API gives) and the full grid (every thread has one
-   tile of work). Each launch is first held bit for bit against the plain
-   version.
-2. floors, at ``update_plan``'s geometry: the same call with the L2
-   evicted by a write (``chip_smoke.time_ms``'s way, which leaves the L2
-   full of dirty lines), by a read (clean lines), and not evicted; the
-   call with every entry padding (row-id loads only); one padding entry
-   (a launch and one load).
-3. with ``--baseline-lib``: the same inputs through the one-thread-per-
+1. floors: the call with the L2 evicted by a write (``chip_smoke.time_ms``'s
+   way, which leaves the L2 full of dirty lines), by a read (clean lines),
+   and not evicted; the call with every entry padding (row-id loads only);
+   one padding entry (a launch and one load).
+2. with ``--baseline-lib``: the same inputs through the one-thread-per-
    (entry, d) kernels of commit 0c234bb, from a library built from that
    commit (``repro_adagrad_rows_f32(params, acc, R, D, rows, vals, N,
    neg_lr, eps, stream)`` and its adam twin), held bit for bit against the
    plain version too.
 
 Times are medians of 50 launches, each timed alone with CUDA events
-(``chip_smoke.time_ms``). This is the measurement that sets
-``VECTOR16_GEOMETRY`` and ``WIDE_GEOMETRY`` in
-``repro_torch.kernels.fused_update``.
+(``chip_smoke.time_ms``).
 """
 import argparse
 import ctypes
@@ -37,14 +29,17 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# (threads, unroll, group) tried per width
-GEOMETRIES = {
-    16: [(t, u, 1) for t in (128, 256) for u in (1, 2, 4)],
-    1: [(t, u, g) for g in (1, 4) for t in (64, 128, 256) for u in (1, 2)],
-}
 B1, B2, LR = 0.9, 0.999, 3e-3
 _VP, _LL, _I, _F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_float)
+
+
+class _Evict:
+    """Stands in for ``chip_smoke.time_ms``'s flush tensor: its ``zero_``
+    runs ``fn`` before each timed launch instead."""
+
+    def __init__(self, fn):
+        self.zero_ = fn
 
 
 def _baseline(path):
@@ -78,8 +73,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     flushes = {"write-evicted": flush,
-               "read-evicted": lambda: flush.max(),
-               "warm": lambda: None}
+               "read-evicted": _Evict(lambda: flush.max()),
+               "warm": _Evict(lambda: None)}
     stream = torch.cuda.current_stream().cuda_stream
     cfg = cs._full_cfg()
     bias = fu.adam_bias(7, B1, B2, dev)
@@ -91,33 +86,32 @@ def main() -> int:
         a0 = torch.rand(p0.shape, device=dev)
         m0 = a0 - 0.5
         n_live = int((rows < R).sum())
-        plan = fu.update_plan(N, D, sms, route)
+        blocks = fu.update_plan(N, D, sms, route)
         padding = torch.full_like(rows, R)
         print(f"D={D} route={route} N={N} live rows={n_live} "
-              f"update_plan={plan}", flush=True)
+              f"blocks={blocks} of {fu.THREADS}", flush=True)
         for name in ("K2", "K3"):
             adam = int(name == "K3")
             pools = (p0, m0, a0) if adam else (p0, a0)
             hyper = ([-LR, B1, 1 - B1, B2, 1 - B2, 1e-8, 0.01] if adam
                      else [-LR, 1e-10])
+            extra = [bias.data_ptr()] if adam else []
 
-            def entry(ps, plan, rows=rows, n=N):
-                ptrs = [x.data_ptr() for x in ps]
+            def entry(ps, rows=rows, n=N):
                 fn = lib.repro_adam_rows_f32 if adam else \
                     lib.repro_adagrad_rows_f32
-                extra = [bias.data_ptr()] if adam else []
-                cuda_lib.check(fn(*ptrs, R, D, rows.data_ptr(),
-                                  vals.data_ptr(), *extra, n, *hyper, vec,
-                                  *plan, stream), name)
+                cuda_lib.check(fn(*[x.data_ptr() for x in ps], R, D,
+                                  rows.data_ptr(), vals.data_ptr(), *extra,
+                                  n, *hyper, vec,
+                                  fu.update_plan(n, D, sms, route), stream),
+                               name)
 
             def baseline(ps):
-                ptrs = [x.data_ptr() for x in ps]
                 fn = base.repro_adam_rows_f32 if adam else \
                     base.repro_adagrad_rows_f32
-                extra = [bias.data_ptr()] if adam else []
-                cuda_lib.check(fn(*ptrs, R, D, rows.data_ptr(),
-                                  vals.data_ptr(), *extra, N, *hyper,
-                                  stream), f"{name} baseline")
+                cuda_lib.check(fn(*[x.data_ptr() for x in ps], R, D,
+                                  rows.data_ptr(), vals.data_ptr(), *extra,
+                                  N, *hyper, stream), f"{name} baseline")
 
             want = [x.clone() for x in pools]
             if adam:
@@ -135,33 +129,19 @@ def main() -> int:
                                        "the plain version")
 
             scratch = [x.clone() for x in pools]
-            for geo in GEOMETRIES[D]:
-                per_sm = lib.repro_rows_blocks_per_sm(adam, D, vec, *geo)
-                if per_sm <= 0:
-                    raise RuntimeError(f"{name} D={D} {geo}: occupancy "
-                                       f"query failed ({per_sm})")
-                cells = []
-                for grid, cap in (("wave", per_sm * geo[0]), ("full", N)):
-                    p = fu.update_plan(N, D, sms, route, geometry=geo,
-                                       threads_per_sm=cap)
-                    exact(lambda ps: entry(ps, p), f"{p} {grid}")
-                    ms = cs.time_ms(lambda: entry(scratch, p), flush)
-                    cells.append(f"{grid} {p.blocks} blocks {ms * 1e3:.2f} us")
-                print(f"{name} D={D} (threads, unroll, group)={geo}, "
-                      f"{per_sm}/SM: " + "; ".join(cells), flush=True)
-            floors = {k: cs.time_ms(lambda: entry(scratch, plan), f)
+            exact(entry, "kernel")
+            floors = {k: cs.time_ms(lambda: entry(scratch), f)
                       for k, f in flushes.items()}
             floors["all padding"] = cs.time_ms(
-                lambda: entry(scratch, plan, rows=padding), flush)
-            one = fu.update_plan(1, D, sms, route)
+                lambda: entry(scratch, rows=padding), flush)
             floors["one padding entry"] = cs.time_ms(
-                lambda: entry(scratch, one, rows=padding, n=1), flush)
+                lambda: entry(scratch, rows=padding, n=1), flush)
             if base is not None:
                 exact(baseline, "0c234bb kernel")
                 for k, f in flushes.items():
                     floors[f"0c234bb kernel, {k}"] = cs.time_ms(
                         lambda: baseline(scratch), f)
-            print(f"{name} D={D} at {tuple(plan)}: " + "; ".join(
+            print(f"{name} D={D}: " + "; ".join(
                 f"{k} {ms * 1e3:.2f} us" for k, ms in floors.items()),
                 flush=True)
     return 0

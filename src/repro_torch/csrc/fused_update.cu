@@ -5,8 +5,9 @@
 // `_adagrad_pallas`) and K3 replaces `_adam_kernel` (launched by
 // `_adam_pallas`), both in src/repro/kernels/fused_update.py.
 //
-// What they compute, for each entry e with 0 <= rows[e] < R (entries >= R
-// are the dedupe's padding and are skipped, wherever they stand):
+// What they compute, for each entry e with 0 <= rows[e] < R (any other
+// entry is padding, as the dedupe's row R is, and is skipped wherever it
+// stands):
 //   K2: a = acc[r] + g*g;  p[r] += -lr*g / (sqrt(a) + eps);  acc[r] = a
 //   K3: m = b1*m[r] + (1-b1)*g;  v = b2*v[r] + (1-b2)*g*g;
 //       p[r] += -lr * ((m/bias[0]) / (sqrt(v/bias[1]) + eps) + wd*p[r])
@@ -22,32 +23,30 @@
 // 5.3 us timed with events after an L2 eviction, and the pool rows are
 // 64-byte pieces scattered over 211 MB pools (PERF.md).
 //
-// Design. Every row id, then every pool and gradient load of a thread, is
-// in flight at once, and no thread is spent on nothing:
+// Design. A thread's row id, then every pool and gradient load of its row,
+// are in flight at once, and no thread is spent on nothing:
 // * D is a template parameter, so no thread divides by a runtime width:
 //   - D=16, the deep pool (vector route): 4 lanes of a warp own a row, one
-//     float4 each, so a warp takes 8 rows per step and 8U per tile. Lane l
-//     of the tile loads the tile's l-th row id (one coalesced load) and
-//     __shfl_sync hands it to the row's lanes.
-//   - D=1, the wide pool (scalar route): a thread takes G consecutive
-//     entries per step (G = 4: one int4 of row ids and one float4 of
-//     gradients), then G scattered words per pool.
+//     float4 each, so a warp takes 8 rows per step. Lane l < 8 loads the
+//     step's l-th row id (one coalesced load) and __shfl_sync hands it to
+//     the row's lanes.
+//   - D=1, the wide pool (scalar route): a thread takes one entry, then one
+//     scattered word per pool.
 //   - Any other width: one thread per entry walks its row, in float4s when
 //     D % 4 == 0 and every array starts on 16 bytes (vector route), else in
 //     floats.
-// * Each thread keeps U rows (or G-entry steps) in flight: it loads U row
-//   ids, then issues every pool and gradient load of those U, then
-//   computes, then stores.
-// * The wrapper (`update_plan` in kernels/fused_update.py) sizes the grid
-//   to the work, capped at one wave of the SMs' 2,048 resident threads;
-//   the kernels walk anything beyond in a grid-stride loop.
+// * Every kernel runs 256 threads per block. The wrapper (`update_plan` in
+//   kernels/fused_update.py) sizes the grid to the work, capped at one wave
+//   of the SMs' 2,048 resident threads; the kernels walk anything beyond in
+//   a grid-stride loop.
 // * A padding entry costs its row-id load and nothing else: its gradient
 //   and pool words are never read.
-// U, G and the block size were measured (scripts/k2_k3_unroll_sweep.py):
-// U = 1 and G = 1 win, since more threads, each waiting on one row, hide
-// the scattered loads' latency better than fewer threads with more rows.
-// The dedupe makes rows unique, so no two threads write the same element
-// and no atomics are needed.
+// More rows in flight per thread (2 or 4 at D=16) and 4-entry groups at D=1
+// (one int4 of row ids, one float4 of gradients) were measured slower:
+// more threads, each waiting on one row, hide the scattered loads' latency
+// better than fewer threads with more rows (PERF.md). The dedupe makes rows
+// unique, so no two threads write the same element and no atomics are
+// needed.
 //
 // Numerics: left to itself nvcc contracts the multiply-adds here (for
 // example p + neg_lr * s) into FMAs, which round once instead of twice;
@@ -61,7 +60,7 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 256;         // per block; THREADS in fused_update.py
 constexpr unsigned kFullMask = 0xffffffffu;
 
 template <int K>
@@ -120,16 +119,6 @@ __device__ __forceinline__ float& lane_of(float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// element j of a 1- or 4-wide load
-__device__ __forceinline__ int piece(int v, int) { return v; }
-__device__ __forceinline__ float piece(float v, int) { return v; }
-__device__ __forceinline__ int piece(const int4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float piece(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
 template <class Op, int K>
 __device__ __forceinline__ void apply(const Op& op, float g, float (&s)[K]) {
   op(g, s);
@@ -149,29 +138,33 @@ __device__ __forceinline__ void apply(const Op& op, float4 g,
   }
 }
 
+// An empty asm that reads x: every load feeding it is issued by this point.
+// Left alone, nvcc sinks the D=1 kernel's params load to its use, past the
+// sqrt and division that ptxas expands into branches, and it becomes a
+// second DRAM round trip after the others (PERF.md).
+__device__ __forceinline__ void issued(float& x) {
+  asm volatile("" : "+f"(x));
+}
+
 __device__ __forceinline__ bool live(int row, long long R) {
   return row >= 0 && row < R;
 }
 
 // every kernel has this signature, so one pointer type serves the launch
-// and the occupancy query
 template <class Op>
 using RowsKernel = void (*)(Op, Pools<Op::kPools>, const int32_t*,
-                            const float*, long long, long long, int, bool);
+                            const float*, long long, long long, int);
 
 // ---------------------------------------------------------------------------
-// D=16, vector route: 4 lanes per row, 8U rows per warp and tile
+// D=16, vector route: 4 lanes per row, 8 rows per warp and step
 // ---------------------------------------------------------------------------
-template <class Op, int U>
-__global__ void __launch_bounds__(kMaxThreads) rows_vec16_kernel(
+template <class Op>
+__global__ void __launch_bounds__(kThreads) rows_vec16_kernel(
     Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
-    const float* __restrict__ vals, long long N, long long R, int,
-    bool) {
+    const float* __restrict__ vals, long long N, long long R, int) {
   constexpr int K = Op::kPools;
   constexpr int kLanes = 4;                     // float4s per row
   constexpr int kRowsPerStep = 32 / kLanes;     // rows per warp and step
-  constexpr int kTile = kRowsPerStep * U;       // rows per warp and tile
-  static_assert(kTile <= 32, "a tile's row ids must fit one warp load");
   const Op o = op.ready();
   const int lane = threadIdx.x & 31;
   const int sub = lane / kLanes;
@@ -180,110 +173,51 @@ __global__ void __launch_bounds__(kMaxThreads) rows_vec16_kernel(
       ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
   const float4* g4 = reinterpret_cast<const float4*>(vals);
-  for (long long base = warp * kTile; base < N; base += n_warps * kTile) {
-    // one coalesced load of the tile's row ids
+  for (long long base = warp * kRowsPerStep; base < N;
+       base += n_warps * kRowsPerStep) {
+    // one coalesced load of the step's row ids
     int mine = -1;
-    if (lane < kTile && base + lane < N) mine = __ldg(rows + base + lane);
-    int row[U];
-    float4 g[U];
-    float4 s[U][K];
+    if (lane < kRowsPerStep && base + lane < N)
+      mine = __ldg(rows + base + lane);
+    const int row = __shfl_sync(kFullMask, mine, sub);
+    if (!live(row, R)) continue;
+    const long long o4 = (long long)row * kLanes + c;
+    const float4 g = __ldg(g4 + (base + sub) * kLanes + c);
+    float4 s[K];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      row[u] = __shfl_sync(kFullMask, mine, u * kRowsPerStep + sub);
-      if (live(row[u], R)) {
-        const long long e = base + u * kRowsPerStep + sub;
-        const long long o4 = (long long)row[u] * kLanes + c;
-        g[u] = __ldg(g4 + e * kLanes + c);
+    for (int k = 0; k < K; ++k)
+      s[k] = reinterpret_cast<const float4*>(pools.p[k])[o4];
+    apply(o, g, s);
 #pragma unroll
-        for (int k = 0; k < K; ++k)
-          s[u][k] = reinterpret_cast<const float4*>(pools.p[k])[o4];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (live(row[u], R)) {
-        apply(o, g[u], s[u]);
-        const long long o4 = (long long)row[u] * kLanes + c;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          reinterpret_cast<float4*>(pools.p[k])[o4] = s[u][k];
-      }
-    }
+    for (int k = 0; k < K; ++k)
+      reinterpret_cast<float4*>(pools.p[k])[o4] = s[k];
   }
 }
 
 // ---------------------------------------------------------------------------
-// D=1, scalar route: G consecutive entries per thread and step (G = 4: one
-// int4 of row ids and one float4 of gradients where both arrays start on 16
-// bytes), U steps in flight
+// D=1, scalar route: one entry per thread, one scattered word per pool
 // ---------------------------------------------------------------------------
-template <int G> struct Ids;
-template <> struct Ids<1> { using I = int; using F = float; };
-template <> struct Ids<4> { using I = int4; using F = float4; };
-
-template <class Op, int U, int G>
-__global__ void __launch_bounds__(kMaxThreads) rows_wide_kernel(
+template <class Op>
+__global__ void __launch_bounds__(kThreads) rows_wide_kernel(
     Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
-    const float* __restrict__ vals, long long N, long long R, int,
-    bool aligned) {
+    const float* __restrict__ vals, long long N, long long R, int) {
   constexpr int K = Op::kPools;
-  using I = typename Ids<G>::I;
-  using F = typename Ids<G>::F;
   const Op o = op.ready();
-  const long long n_groups = (N + G - 1) / G;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long g0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g0 < n_groups; g0 += stride * U) {
-    int row[U][G];
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < N;
+       e += stride) {
+    const int row = __ldg(rows + e);
+    if (!live(row, R)) continue;
+    float g = __ldg(vals + e);
+    float s[K];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long e0 = (g0 + u * stride) * G;
-      if ((G == 1 || aligned) && e0 + G <= N) {
-        const I q = __ldg(reinterpret_cast<const I*>(rows + e0));
+    for (int k = 0; k < K; ++k) s[k] = pools.p[k][row];
+    issued(g);
 #pragma unroll
-        for (int j = 0; j < G; ++j) row[u][j] = piece(q, j);
-      } else {
+    for (int k = 0; k < K; ++k) issued(s[k]);
+    apply(o, g, s);
 #pragma unroll
-        for (int j = 0; j < G; ++j)
-          row[u][j] = e0 + j < N ? __ldg(rows + e0 + j) : -1;
-      }
-    }
-    float g[U][G];
-    float s[U][G][K];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const long long e0 = (g0 + u * stride) * G;
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < G; ++j) any = any || live(row[u][j], R);
-      if (any && (G == 1 || aligned) && e0 + G <= N) {
-        const F q = __ldg(reinterpret_cast<const F*>(vals + e0));
-#pragma unroll
-        for (int j = 0; j < G; ++j) g[u][j] = piece(q, j);
-      } else if (any) {
-#pragma unroll
-        for (int j = 0; j < G; ++j)
-          g[u][j] = live(row[u][j], R) ? __ldg(vals + e0 + j) : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if (live(row[u][j], R)) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) s[u][j][k] = pools.p[k][row[u][j]];
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        if (live(row[u][j], R)) {
-          apply(o, g[u][j], s[u][j]);
-#pragma unroll
-          for (int k = 0; k < K; ++k) pools.p[k][row[u][j]] = s[u][j][k];
-        }
-      }
-    }
+    for (int k = 0; k < K; ++k) pools.p[k][row] = s[k];
   }
 }
 
@@ -295,9 +229,9 @@ template <> struct Piece<1> { using T = float; };
 template <> struct Piece<4> { using T = float4; };
 
 template <class Op, int W>
-__global__ void __launch_bounds__(kMaxThreads) rows_any_kernel(
+__global__ void __launch_bounds__(kThreads) rows_any_kernel(
     Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
-    const float* __restrict__ vals, long long N, long long R, int D, bool) {
+    const float* __restrict__ vals, long long N, long long R, int D) {
   using T = typename Piece<W>::T;
   constexpr int K = Op::kPools;
   const Op o = op.ready();
@@ -322,27 +256,11 @@ __global__ void __launch_bounds__(kMaxThreads) rows_any_kernel(
   }
 }
 
-// the kernel for a width, route, unroll and group; nullptr if there is none
+// the kernel for a width and route
 template <class Op>
-RowsKernel<Op> pick(int D, int vec, int unroll, int group) {
-  if (vec && D == 16 && group == 1) {
-    switch (unroll) {
-      case 1: return rows_vec16_kernel<Op, 1>;
-      case 2: return rows_vec16_kernel<Op, 2>;
-      case 4: return rows_vec16_kernel<Op, 4>;
-      default: return nullptr;
-    }
-  }
-  if (!vec && D == 1) {
-    switch (unroll * 8 + group) {
-      case 9: return rows_wide_kernel<Op, 1, 1>;
-      case 17: return rows_wide_kernel<Op, 2, 1>;
-      case 12: return rows_wide_kernel<Op, 1, 4>;
-      case 20: return rows_wide_kernel<Op, 2, 4>;
-      default: return nullptr;
-    }
-  }
-  if (unroll != 1 || group != 1) return nullptr;
+RowsKernel<Op> pick(int D, int vec) {
+  if (vec && D == 16) return rows_vec16_kernel<Op>;
+  if (!vec && D == 1) return rows_wide_kernel<Op>;
   return vec ? rows_any_kernel<Op, 4> : rows_any_kernel<Op, 1>;
 }
 
@@ -353,71 +271,44 @@ bool aligned16(const void* p) {
 template <class Op>
 int launch_rows(const Op& op, const Pools<Op::kPools>& pools, long long R,
                 int D, const void* rows_v, const void* vals_v, long long N,
-                int vec, int blocks, int threads, int unroll, int group,
-                void* stream) {
+                int vec, int blocks, void* stream) {
   if (N * D == 0) return 0;
-  const auto* rows = static_cast<const int32_t*>(rows_v);
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   const auto* vals = static_cast<const float*>(vals_v);
-  if (blocks <= 0 || threads <= 0 || threads > kMaxThreads ||
-      threads % 32 != 0)
-    return (int)cudaErrorInvalidConfiguration;
   if (vec) {
     bool ok = D % 4 == 0 && aligned16(vals);
     for (int k = 0; k < Op::kPools; ++k) ok = ok && aligned16(pools.p[k]);
     if (!ok) return (int)cudaErrorMisalignedAddress;
   }
-  const RowsKernel<Op> kernel = pick<Op>(D, vec, unroll, group);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const bool entries_aligned = aligned16(rows) && aligned16(vals);
-  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      op, pools, rows, vals, N, R, D, entries_aligned);
+  pick<Op>(D, vec)<<<blocks, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      op, pools, static_cast<const int32_t*>(rows_v), vals, N, R, D);
   return (int)cudaGetLastError();
-}
-
-template <class Op>
-int blocks_per_sm(int D, int vec, int threads, int unroll, int group) {
-  const RowsKernel<Op> kernel = pick<Op>(D, vec, unroll, group);
-  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
-  int n = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0);
-  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
 
 // `vec` selects the vector route (the caller checked D % 4 == 0 and the
-// alignment of the pools and vals; refused here otherwise); blocks,
-// threads, unroll and group come from `update_plan`.
+// alignment of the pools and vals; refused here otherwise); `blocks` comes
+// from `update_plan`.
 extern "C" int repro_adagrad_rows_f32(
     void* params, void* acc, long long R, int D, const void* rows,
     const void* vals, long long N, float neg_lr, float eps, int vec,
-    int blocks, int threads, int unroll, int group, void* stream) {
+    int blocks, void* stream) {
   const AdagradOp op{neg_lr, eps};
   const Pools<2> pools{{static_cast<float*>(params),
                         static_cast<float*>(acc)}};
-  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, threads,
-                     unroll, group, stream);
+  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, stream);
 }
 
 extern "C" int repro_adam_rows_f32(
     void* params, void* m, void* v, long long R, int D, const void* rows,
     const void* vals, const void* bias, long long N, float neg_lr, float b1,
     float one_minus_b1, float b2, float one_minus_b2, float eps, float wd,
-    int vec, int blocks, int threads, int unroll, int group, void* stream) {
+    int vec, int blocks, void* stream) {
   const AdamOp op{neg_lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd,
                   static_cast<const float*>(bias), 0.0f, 0.0f};
   const Pools<3> pools{{static_cast<float*>(params), static_cast<float*>(m),
                         static_cast<float*>(v)}};
-  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, threads,
-                     unroll, group, stream);
-}
-
-// Resident blocks per SM of the kernel that (D, vec, unroll, group)
-// selects, at `threads` per block
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError.
-extern "C" int repro_rows_blocks_per_sm(int adam, int D, int vec,
-                                        int threads, int unroll, int group) {
-  return adam ? blocks_per_sm<AdamOp>(D, vec, threads, unroll, group)
-              : blocks_per_sm<AdagradOp>(D, vec, threads, unroll, group);
+  return launch_rows(op, pools, R, D, rows, vals, N, vec, blocks, stream);
 }

@@ -44,11 +44,10 @@ _SIGNATURES = {
     "repro_fused_embedding_bag_f32":
         [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _I, _I, _VP],
     "repro_adagrad_rows_f32":
-        [_VP, _VP, _LL, _I, _VP, _VP, _LL, _F, _F, _I, _I, _I, _I, _I, _VP],
+        [_VP, _VP, _LL, _I, _VP, _VP, _LL, _F, _F, _I, _I, _VP],
     "repro_adam_rows_f32":
         [_VP, _VP, _VP, _LL, _I, _VP, _VP, _VP, _LL, _F, _F, _F, _F, _F, _F,
-         _F, _I, _I, _I, _I, _I, _VP],
-    "repro_rows_blocks_per_sm": [_I, _I, _I, _I, _I, _I],
+         _F, _I, _I, _VP],
     "repro_flash_attention":
         [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
          _VP],

@@ -15,10 +15,13 @@ update should move only the touched rows.
   the width and the alignment of the arrays; ``update_plan`` sizes the
   grid, one wave at most, from the entry count, the width and the SM
   count.
+* Padding is any row outside ``[0, R)``. The dedupe pads with ``R``; a
+  negative id is padding too (the reference's scatter would wrap it), so
+  both versions skip it.
 * CPU tensors run the plain versions ``adagrad_rows_plain`` /
   ``adam_rows_plain``: the reference's gather → row-wise expression →
   scatter, with the padding entries masked out explicitly (JAX's scatter
-  drops them; ``index_put_`` would raise on the CPU and device-assert on
+  drops those ``>= R``; ``index_put_`` would raise on the CPU and device-assert on
   CUDA).
 
 The kernels spell every operation with CUDA's ``_rn`` intrinsics, which nvcc
@@ -29,29 +32,17 @@ contract) they agree within ULP bounds.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import cuda_lib
 
-# Launch geometry, chosen by ``scripts/k2_k3_unroll_sweep.py`` on the H100
-# (PERF.md): (threads per block, unroll, group) per kernel. unroll is
-# the rows (D=16) or entry groups (D=1) each thread keeps in flight, group
-# the consecutive entries a D=1 thread takes per step (1, or 4 for one int4
-# of row ids and one float4 of gradients).
-VECTOR16_GEOMETRY = (256, 1, 1)
-WIDE_GEOMETRY = (256, 1, 1)
-OTHER_THREADS = 256       # any other width: a thread per entry
+# Launch geometry (PERF.md: 2 or 4 rows in flight per thread, and 4-entry
+# groups at D=1, measured slower than one row or entry per thread).
+THREADS = 256             # per block, every K2/K3 kernel (kThreads in the .cu)
 THREADS_PER_SM = 2048     # an SM's resident threads: the grid's one-wave cap
-VEC_ROWS_PER_WARP = 8     # D=16: 4 lanes of a warp own a row, one float4 each
-
-
-class Plan(NamedTuple):
-    blocks: int
-    threads: int
-    unroll: int
-    group: int
+VEC_LANES = 4             # D=16: 4 lanes of a warp own a row, one float4 each
 
 
 def update_route(D: int, *arrays: torch.Tensor) -> str:
@@ -63,32 +54,19 @@ def update_route(D: int, *arrays: torch.Tensor) -> str:
     return "scalar"
 
 
-def update_plan(N: int, D: int, sm_count: int, route: str = "vector", *,
-                geometry: Optional[Tuple[int, int, int]] = None,
-                threads_per_sm: int = THREADS_PER_SM) -> Plan:
-    """The K2/K3 launch over ``N`` entries of a width-``D`` pool on a card
-    of ``sm_count`` SMs.
+def update_plan(N: int, D: int, sm_count: int, route: str = "vector") -> int:
+    """Blocks of ``THREADS`` for the K2/K3 launch over ``N`` entries of a
+    width-``D`` pool on a card of ``sm_count`` SMs.
 
-    D=16 on the vector route: a warp takes ``8 * unroll`` rows per tile.
-    D=1 (scalar route): a thread takes ``unroll`` steps of ``group``
-    entries. Any other case: a thread per entry. The grid covers that work
-    and holds no more than ``threads_per_sm`` threads per SM: one wave,
-    walked by a grid-stride loop. A function of the shape alone; 0 blocks
-    when there is nothing to do. ``geometry`` lets a sweep try others."""
-    cdiv = lambda a, b: -(-a // b)  # noqa: E731
-    if route == "vector" and D == 16:
-        threads, unroll, group = geometry or VECTOR16_GEOMETRY
-        work = 32 * cdiv(N, VEC_ROWS_PER_WARP * unroll)
-    elif route == "scalar" and D == 1:
-        threads, unroll, group = geometry or WIDE_GEOMETRY
-        work = cdiv(cdiv(N, group), unroll)
-    else:
-        threads = geometry[0] if geometry else OTHER_THREADS
-        unroll, group, work = 1, 1, N
+    D=16 on the vector route: ``VEC_LANES`` threads per entry. Any other
+    case: a thread per entry. The grid covers that work and holds no more
+    than ``THREADS_PER_SM`` threads per SM: one wave, walked by a
+    grid-stride loop. A function of the shape alone; 0 when there is
+    nothing to do."""
     if N <= 0 or D <= 0:
-        return Plan(0, threads, unroll, group)
-    cap = sm_count * max(1, threads_per_sm // threads)
-    return Plan(min(cdiv(work, threads), cap), threads, unroll, group)
+        return 0
+    work = N * VEC_LANES if route == "vector" and D == 16 else N
+    return min(-(-work // THREADS), sm_count * (THREADS_PER_SM // THREADS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,18 +75,18 @@ def _sm_count(index: int) -> int:
 
 
 def _launch_args(params: torch.Tensor, vals: torch.Tensor, N: int,
-                 *pools: torch.Tensor):
-    """(vec, blocks, threads, unroll, group) for the C entry points."""
+                 *pools: torch.Tensor) -> Tuple[int, int]:
+    """(vec, blocks) for the C entry points."""
     D = params.shape[1]
     route = update_route(D, params, vals, *pools)
-    plan = update_plan(N, D, _sm_count(params.device.index), route)
-    return (int(route == "vector"), *plan)
+    return (int(route == "vector"),
+            update_plan(N, D, _sm_count(params.device.index), route))
 
 
 def _live(params: torch.Tensor, rows: torch.Tensor,
           vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows below ``R`` (as int64) and their values; the padding goes."""
-    live = rows < params.shape[0]
+    """Rows in ``[0, R)`` (as int64) and their values; the padding goes."""
+    live = (rows >= 0) & (rows < params.shape[0])
     return rows[live].long(), vals[live]
 
 
@@ -155,10 +133,11 @@ def adagrad_rows_cuda(params, acc, rows, vals, *, lr: float, eps: float):
     ``repro/kernels/fused_update.py``. Bound by bytes: 5 x D x 4 B per live
     row plus 4 B per entry, 7.7 MB (2.30 us at 3.35 TB/s) for the ~23,400
     live rows of a full-width Wide&Deep batch. The grid comes from
-    ``update_plan`` (at most one wave of the SMs' threads): float4 pieces
-    of a row on the vector route, single words on the scalar route, every
-    load of a thread in flight at once; padding entries cost one row-id
-    load. One launch per call with work; nothing is launched for N=0.
+    ``update_plan`` (at most one wave of the SMs' threads): at D=16 four
+    threads per row, one float4 each (vector route); at D=1 one entry and
+    one word per pool per thread (scalar route); a row's loads are all in
+    flight at once; padding entries cost one row-id load. One launch per
+    call with work; nothing is launched for N=0.
     """
     _check_rows("adagrad_row_update", params, rows, vals, acc)
     N = rows.shape[0]
@@ -184,8 +163,8 @@ def adagrad_row_update(params: torch.Tensor, acc: torch.Tensor,
     Args:
       params: (R, D) parameter pool (flat or padded view).
       acc:    (R, D) f32 accumulator pool in the same row space.
-      rows:   (N,) int32 deduplicated store rows; entries ``>= R`` are
-              padding.
+      rows:   (N,) int32 deduplicated store rows; entries outside
+              ``[0, R)`` are padding.
       vals:   (N, D) summed row gradients (zero on padding entries).
       lr/eps: adagrad hyperparameters.
 
@@ -264,8 +243,8 @@ def adam_row_update(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     Args:
       params: (R, D) parameter pool.
       m, v:   (R, D) f32 moment pools in the same row space.
-      rows:   (N,) int32 deduplicated store rows; entries ``>= R`` are
-              padding.
+      rows:   (N,) int32 deduplicated store rows; entries outside
+              ``[0, R)`` are padding.
       vals:   (N, D) summed row gradients.
       count:  the step count after this step (the dense update's counter).
 

@@ -95,8 +95,10 @@ def test_k1_matches_plain(dev, combiner, weighted, K, D):
 
 def _rows(rng, R, n, live, tail):
     """``n`` entries: ``live`` unique rows in random order, the rest padding
-    (values >= R) interleaved among them, and a padding tail of ``tail``."""
-    rows = (R + rng.integers(0, 1000, n)).astype(np.int32)
+    (values >= R or negative, about half each) interleaved among them, and
+    a padding tail of ``tail``."""
+    pad = rng.integers(0, 1000, n)
+    rows = np.where(pad % 2 == 1, -1 - pad, R + pad).astype(np.int32)
     rows[rng.choice(n - tail, live, replace=False)] = \
         rng.choice(R, live, replace=False)
     return rows
@@ -149,13 +151,14 @@ def _pools(rng, R, D, state):
 @pytest.mark.parametrize("state", ["fresh", "carried"])
 @pytest.mark.parametrize("D", [16, 1, 4, 6])
 def test_k2_k3_match_plain(dev, D, state):
-    """Unsorted live rows with padding interleaved and as a tail: bit for
-    bit against the plain version on the card, within the ULP bounds of
+    """Unsorted live rows with padding (negative and >= R) interleaved and
+    as a tail: bit for bit against the plain version on the card, within the ULP bounds of
     the plain version on the CPU. D=16 and D=4 take the vector route, D=1
     and D=6 (the generic width) the scalar route."""
     rng = np.random.default_rng(1)
     R, n = 5000, 900
     rows = torch.from_numpy(_rows(rng, R, n, 500, 200))
+    assert (rows < 0).any() and (rows >= R).any()
     vals = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
     p0, a0, m0 = _pools(rng, R, D, state)
     wd = 0.01 if state == "carried" else 0.0

@@ -7,6 +7,8 @@ are not touched (and the sentinel tail) stay bit-identical. Optimizer
 transforms on random trees: within 4 ULP per leaf (norms and clip scales
 are sums whose order differs, so 1e-6 relative there).
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -136,55 +138,36 @@ def test_rows_with_interleaved_padding_match_reference(D, kind):
 def test_update_plan_and_route_follow_the_shape_alone():
     """K2/K3's launch geometry is a function of (N, D, SM count, route), and
     the route of the width and the arrays' alignment."""
-    plan, sms = tfu.update_plan, 132
+    plan, sms, T = tfu.update_plan, 132, tfu.THREADS
+    wave = sms * (tfu.THREADS_PER_SM // T)          # 1,056 blocks of 256
 
     def cdiv(a, b):
         return -(-a // b)
 
-    def wave(threads):
-        return sms * (tfu.THREADS_PER_SM // threads)
-
     # the main path: 512 x 26 x 4 entries, deep pool D=16 and wide pool D=1
     N = 512 * 26 * 4
-    T, U, _ = tfu.VECTOR16_GEOMETRY
-    assert plan(N, 16, sms, "vector") == (
-        min(cdiv(32 * cdiv(N, 8 * U), T), wave(T)), T, U, 1)
-    Tw, Uw, Gw = tfu.WIDE_GEOMETRY
-    assert plan(N, 1, sms, "scalar") == (
-        min(cdiv(cdiv(cdiv(N, Gw), Uw), Tw), wave(Tw)), Tw, Uw, Gw)
-    assert plan(N, 16, sms, "vector").blocks <= wave(T)
+    assert plan(N, 16, sms, "vector") == cdiv(4 * N, T) == 832
+    assert plan(N, 1, sms, "scalar") == cdiv(N, T) == 208
     for n in (0, -1):
-        assert plan(n, 16, sms).blocks == 0
-        assert plan(n, 1, sms, "scalar").blocks == 0
-    assert plan(5, 16, sms).blocks == 1 and plan(5, 1, sms, "scalar").blocks == 1
-    # other widths and the scalar D=16 route: a thread per entry
-    To = tfu.OTHER_THREADS
+        assert plan(n, 16, sms) == 0 and plan(n, 1, sms, "scalar") == 0
+    assert plan(5, 16, sms) == 1 and plan(5, 1, sms, "scalar") == 1
+    # a thread per entry on any other width and on the scalar D=16 route
     for D, route in ((6, "scalar"), (4, "vector"), (16, "scalar")):
-        assert plan(1000, D, sms, route) == (cdiv(1000, To), To, 1, 1)
-        assert plan(10 ** 8, D, sms, route) == (wave(To), To, 1, 1)
-        assert plan(1000, D, sms, route, geometry=(64, 4, 4)) == \
-            (cdiv(1000, 64), 64, 1, 1)
-    # pinned geometries: tiles of 8 x unroll rows (D=16), steps of unroll x
-    # group entries (D=1); the cap is threads_per_sm resident threads per SM
-    assert plan(1000, 16, sms, geometry=(128, 4, 1)) == (8, 128, 4, 1)
-    assert plan(1000, 16, sms, geometry=(128, 1, 1)) == (32, 128, 1, 1)
-    assert plan(1000, 16, 4, geometry=(128, 4, 1),
-                threads_per_sm=128) == (4, 128, 4, 1)
-    assert plan(1000, 1, sms, "scalar", geometry=(64, 2, 4)) == \
-        (2, 64, 2, 4)                         # 125 threads of 8 entries
-    assert plan(1000, 1, sms, "scalar", geometry=(64, 1, 1)) == \
-        (16, 64, 1, 1)
-    assert plan(10 ** 7, 1, 66, "scalar", geometry=(64, 1, 1),
-                threads_per_sm=256) == (66 * 4, 64, 1, 1)
+        assert plan(1000, D, sms, route) == cdiv(1000, T)
+        assert plan(10 ** 8, D, sms, route) == wave
+    assert plan(10 ** 8, 16, sms) == wave
+    assert plan(10 ** 7, 1, 66, "scalar") == 66 * tfu.THREADS_PER_SM // T
     for n in (1, 31, 33, 1000, 53248, 10 ** 6):
-        for D, route in ((16, "vector"), (1, "scalar"), (6, "scalar")):
-            p = plan(n, D, sms, route)
-            cap = wave(p.threads)
-            assert 1 <= p.blocks <= cap
-            if p.blocks < cap:       # uncapped: the grid covers the work
-                per_thread = {16: 8 * p.unroll / 32,
-                              1: p.unroll * p.group, 6: 1}[D]
-                assert p.blocks * p.threads * per_thread >= n
+        for D, route, per_entry in ((16, "vector", tfu.VEC_LANES),
+                                    (1, "scalar", 1), (6, "scalar", 1)):
+            blocks = plan(n, D, sms, route)
+            assert 1 <= blocks <= wave
+            if blocks < wave:        # uncapped: the grid covers the work
+                assert blocks * T >= n * per_entry > (blocks - 1) * T
+    # the kernels' block size is the plan's
+    cu = (Path(tfu.__file__).parents[1] / "csrc" / "fused_update.cu"
+          ).read_text()
+    assert f"constexpr int kThreads = {T};" in cu
 
     # the route: D % 4 == 0 and every array on 16 bytes -> vector
     def pool(R, D, offset=0):
@@ -208,6 +191,30 @@ def test_adam_bias_pair_matches_reference():
         got = tfu.adam_bias(count, 0.9, 0.999, "cpu")
         assert got.dtype == torch.float32
         assert_ulp_close(got.numpy(), want, 1, f"bias at {count}")
+
+
+@pytest.mark.parametrize("kind", ["adagrad", "adam"])
+def test_negative_rows_are_padding(kind):
+    """Row ids below 0 are padding, as ids >= R are: the plain version
+    skips them (the reference's scatter would wrap them to R + id; the
+    dedupe never makes one), and the kernels do the same."""
+    params, m, v, rows, vals = _interleaved_case(16, seed=5)
+    R = params.shape[0]
+    neg = rows.copy()
+    pad = np.flatnonzero(rows >= R)
+    neg[pad[::2]] = -1 - (rows[pad[::2]] - R)
+    assert (neg < 0).any()
+    hyper = dict(lr=0.05) if kind == "adagrad" else dict(lr=0.01, count=3)
+    outs = []
+    for r in (rows, neg):
+        got = [torch.from_numpy(x.copy()) for x in (params, m, v)]
+        state = got[2:] if kind == "adagrad" else got[1:]
+        tops.fused_row_update(got[0], torch.from_numpy(r),
+                              torch.from_numpy(vals), *state, kind=kind,
+                              **hyper)
+        outs.append(got)
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
 
 
 def test_all_sentinel_rows_are_a_no_op():
