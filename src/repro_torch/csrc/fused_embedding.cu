@@ -5,27 +5,45 @@
 // its `_fill_stage`/`_drain_stage` double-buffered DMA staging).
 //
 // What it computes: out[b, t, :] = combine_j w[b, t, j] * row(enc[b, t, j]),
-// where an encoded index v < 0 reads slot -v-1 of the hot-row cache (K, D)
-// and v >= 0 reads pool row v (already translated to the padded store row
-// under a padded layout). Combiners: sum, mean (sum / H), max. f32 in and
-// f32 out; accumulation is f32.
+// where an encoded index v < 0 reads slot -v-1 of the hot-row cache (K, D),
+// clamped to K-1, and v >= 0 reads pool row v (already translated to the
+// padded store row under a padded layout), clamped to R-1. With no cache
+// (K = 0) a negative v reads pool row 0, as the plain version and the
+// reference's Pallas kernel (jnp.clip(v, 0, R - 1)) do. Combiners: sum,
+// mean (sum / H), max. f32 in and f32 out; accumulation is f32.
 //
-// Bound on this card: bytes. At the full Wide&Deep width (B=512, T=26,
-// H=4, D=16) a step reads at most 53,248 pool rows of 64 B, the indices and
-// writes a (B, T, D) output: about 4.5 MB, 1.3 us at 3.35 TB/s, while the
-// arithmetic is ~1.7 MFLOP. At that size the kernel is launch-bound.
+// Bound on this card: bytes, and in practice latency. A full-width
+// Wide&Deep batch (B=512, T=26, H=4) reads ~23,400 distinct cold rows of
+// 64 B from the deep D=16 pool, the 64 hot rows, 213 KB of indices, and
+// writes a (B, T, 16) output: 2.57 MB, 0.766 us at 3.35 TB/s, against
+// ~0.85 MFLOP. Each output needs two dependent DRAM trips (the index, then
+// the row) and a store, and a launch that loads one word and stops already
+// takes ~5.3 us timed with events after an L2 eviction (PERF.md), so what
+// the design can win is latency: every load of a bag in flight at once.
 //
-// Design: one thread per output element (bag, d), so the D lanes of one bag
-// are neighbouring threads that read one contiguous pool row together (64 B
-// for D=16; the wide pool has D=1 and one thread per bag). A thread walks
-// its bag's H lookups in order. On Hopper the "cache" is the packed hot
-// prefix that stays resident in the 50 MB L2, so no shared-memory staging
-// is done; the kernel still takes encoded indices and the (K, D) cache
-// tensor, which holds bit-identical copies of the hot pool rows, so output
-// with the cache on equals output with it off bit for bit. The TPU's
-// double-buffered DMA, its batch padding to block_b and its SMEM index
-// blocks are not carried over: the GPU hides gather latency by keeping many
-// warps in flight.
+// Design. D and H are template parameters on the main path's shapes (every
+// DLRM config has H = multi_hot = 4, the deep pool D = 16, the wide pool
+// D = 1), so no thread divides by a runtime width or walks a runtime loop:
+// * D=16, H=4 (vector route): 4 lanes own a bag, one float4 of its output
+//   row each, 8 bags per warp. Each lane loads the bag's 4 indices as one
+//   int4 (the 4 lanes read the same 16 bytes, so a warp's index load is one
+//   128-byte line) and the 4 weights as one float4, then issues its 4 row
+//   pieces as float4 loads, and only then combines, in order j = 0..3.
+// * D=1, H=4 (wide route): a thread owns a bag: one int4 of indices, 4
+//   scattered word loads, one float4 of weights; 64-thread blocks, so the
+//   main path's 13,312 bags make 208 blocks and reach every SM.
+// * Any other (D, H), or arrays not on 16 bytes (generic route): a thread
+//   owns a bag and walks its D outputs and H lookups with runtime bounds.
+// The row address is a select between the cache and the pool, not a
+// branch, so no row load waits on a decision. The wrapper picks the route
+// (`bag_route` in kernels/fused_embedding.py, from D, H and the arrays'
+// alignment) and the grid (`bag_plan`: the work, one block per 256 or 64
+// threads); one launch per call. On Hopper the hot-row "cache" is the
+// packed hot prefix, which stays resident in the 50 MB L2, so no shared
+// memory staging is done; it holds bit-identical copies of pool rows, so
+// output with the cache on equals output with it off bit for bit. The
+// TPU's double-buffered DMA, its batch padding to block_b and its SMEM
+// index blocks are not carried over.
 //
 // Numerics: the products and sums use __fmul_rn/__fadd_rn/__fdiv_rn, which
 // nvcc never contracts into FMAs, in the order j = 0..H-1. The plain PyTorch
@@ -40,52 +58,229 @@ constexpr int kSum = 0;
 constexpr int kMean = 1;
 constexpr int kMax = 2;
 
+// routes: _ROUTE_CODE in kernels/fused_embedding.py
+constexpr int kGeneric = 0;
+constexpr int kVector = 1;
+constexpr int kWide = 2;
+constexpr int kWideLanes = 3;   // sweep candidate (b) for D=1
+
+// threads per block: BAG_THREADS in kernels/fused_embedding.py
+constexpr int kVecThreads = 256;
+constexpr int kWideThreads = 64;
+constexpr int kAnyThreads = 256;
+
+constexpr int kH = 4;           // lookups per bag on the vector and wide routes
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The first element of the row that encoded index v reads (see the header).
+__device__ __forceinline__ const float* lookup(
+    const float* pool, long long R, const float* cache, long long K, int v,
+    long long D) {
+  const long long slot = min(-(long long)v - 1, K - 1);
+  const long long row = min(max((long long)v, 0LL), R - 1);
+  return (v < 0 && K > 0) ? cache + slot * D : pool + row * D;
+}
+
 template <int COMBINER>
-__global__ void fused_embedding_bag_kernel(
+__device__ __forceinline__ float combine(float acc, float x, int j) {
+  if (COMBINER == kMax) return (j == 0 || x > acc) ? x : acc;
+  return j == 0 ? x : __fadd_rn(acc, x);
+}
+
+template <int COMBINER>
+__device__ __forceinline__ float4 combine(float4 acc, float4 x, int j) {
+  return make_float4(combine<COMBINER>(acc.x, x.x, j),
+                     combine<COMBINER>(acc.y, x.y, j),
+                     combine<COMBINER>(acc.z, x.z, j),
+                     combine<COMBINER>(acc.w, x.w, j));
+}
+
+template <int COMBINER>
+__device__ __forceinline__ float finish(float acc, int H) {
+  return COMBINER == kMean ? __fdiv_rn(acc, (float)H) : acc;
+}
+
+template <int COMBINER>
+__device__ __forceinline__ float4 finish(float4 acc, int H) {
+  return make_float4(finish<COMBINER>(acc.x, H), finish<COMBINER>(acc.y, H),
+                     finish<COMBINER>(acc.z, H), finish<COMBINER>(acc.w, H));
+}
+
+__device__ __forceinline__ float scale(float x, float w) {
+  return __fmul_rn(x, w);
+}
+
+__device__ __forceinline__ float4 scale(float4 x, float w) {
+  return make_float4(__fmul_rn(x.x, w), __fmul_rn(x.y, w), __fmul_rn(x.z, w),
+                     __fmul_rn(x.w, w));
+}
+
+// Combine the H = 4 loaded lookups of a bag in order, weighted first.
+template <int COMBINER, class T>
+__device__ __forceinline__ T combine4(const T (&x)[kH], bool weighted,
+                                      float4 w) {
+  const float ws[kH] = {w.x, w.y, w.z, w.w};
+  T acc = x[0];
+#pragma unroll
+  for (int j = 0; j < kH; ++j)
+    acc = combine<COMBINER>(acc, weighted ? scale(x[j], ws[j]) : x[j], j);
+  return finish<COMBINER>(acc, kH);
+}
+
+// ---------------------------------------------------------------------------
+// D=16, H=4, vector route: 4 lanes per bag, one float4 of the row each
+// ---------------------------------------------------------------------------
+template <int COMBINER>
+__global__ void __launch_bounds__(kVecThreads) bag_vec16_kernel(
     const float* __restrict__ pool, long long R,
     const int32_t* __restrict__ enc, const float* __restrict__ weights,
-    const float* __restrict__ cache, long long K,
-    float* __restrict__ out, long long n_bags, int H, int D) {
+    const float* __restrict__ cache, long long K, float* __restrict__ out,
+    long long n_bags) {
+  constexpr int D = 16;
+  constexpr int kLanes = D / 4;               // float4s per row
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_bags * D) return;
-  const long long bag = i / D;
-  const int d = (int)(i - bag * D);
+  const long long bag = i >> 2;
+  if (bag >= n_bags) return;
+  const int c = (int)(i & (kLanes - 1));
+  const int4 v = __ldg(reinterpret_cast<const int4*>(enc) + bag);
+  const bool weighted = weights != nullptr;
+  const float4 w = weighted
+      ? __ldg(reinterpret_cast<const float4*>(weights) + bag)
+      : make_float4(1.f, 1.f, 1.f, 1.f);
+  const int vs[kH] = {v.x, v.y, v.z, v.w};
+  float4 x[kH];
+#pragma unroll
+  for (int j = 0; j < kH; ++j)
+    x[j] = __ldg(reinterpret_cast<const float4*>(
+                     lookup(pool, R, cache, K, vs[j], D)) + c);
+  reinterpret_cast<float4*>(out)[i] = combine4<COMBINER>(x, weighted, w);
+}
+
+// ---------------------------------------------------------------------------
+// D=1, H=4, wide route: a bag per thread, one int4 of indices
+// ---------------------------------------------------------------------------
+template <int COMBINER>
+__global__ void __launch_bounds__(kWideThreads) bag_wide_kernel(
+    const float* __restrict__ pool, long long R,
+    const int32_t* __restrict__ enc, const float* __restrict__ weights,
+    const float* __restrict__ cache, long long K, float* __restrict__ out,
+    long long n_bags) {
+  const long long bag = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (bag >= n_bags) return;
+  const int4 v = __ldg(reinterpret_cast<const int4*>(enc) + bag);
+  const bool weighted = weights != nullptr;
+  const float4 w = weighted
+      ? __ldg(reinterpret_cast<const float4*>(weights) + bag)
+      : make_float4(1.f, 1.f, 1.f, 1.f);
+  const int vs[kH] = {v.x, v.y, v.z, v.w};
+  float x[kH];
+#pragma unroll
+  for (int j = 0; j < kH; ++j)
+    x[j] = __ldg(lookup(pool, R, cache, K, vs[j], 1));
+  out[bag] = combine4<COMBINER>(x, weighted, w);
+}
+
+// ---------------------------------------------------------------------------
+// D=1, H=4, sweep candidate (b): 4 lanes per bag, one lookup each, combined
+// in order by shuffles
+// ---------------------------------------------------------------------------
+template <int COMBINER>
+__global__ void __launch_bounds__(kVecThreads) bag_wide_lanes_kernel(
+    const float* __restrict__ pool, long long R,
+    const int32_t* __restrict__ enc, const float* __restrict__ weights,
+    const float* __restrict__ cache, long long K, float* __restrict__ out,
+    long long n_bags) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < n_bags * kH;
+  float x = 0.f;
+  if (in) {
+    const int v = __ldg(enc + i);
+    const float w = weights != nullptr ? __ldg(weights + i) : 1.f;
+    x = __ldg(lookup(pool, R, cache, K, v, 1));
+    if (weights != nullptr) x = scale(x, w);
+  }
+  const int first = (threadIdx.x & 31) & ~(kH - 1);
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kH; ++j)
+    acc = combine<COMBINER>(acc, __shfl_sync(kFullMask, x, first + j), j);
+  if (in && (i & (kH - 1)) == 0) out[i >> 2] = finish<COMBINER>(acc, kH);
+}
+
+// ---------------------------------------------------------------------------
+// any other (D, H), generic route: a bag per thread, runtime bounds
+// ---------------------------------------------------------------------------
+template <int COMBINER>
+__global__ void __launch_bounds__(kAnyThreads) bag_any_kernel(
+    const float* __restrict__ pool, long long R,
+    const int32_t* __restrict__ enc, const float* __restrict__ weights,
+    const float* __restrict__ cache, long long K, float* __restrict__ out,
+    long long n_bags, int H, int D) {
+  const long long bag = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (bag >= n_bags) return;
   const int32_t* bag_idx = enc + bag * H;
   const float* bag_w = weights == nullptr ? nullptr : weights + bag * H;
-  float acc = 0.0f;
-  for (int j = 0; j < H; ++j) {
-    const long long v = bag_idx[j];
-    const float* row;
-    if (v < 0) {
-      // hot lookup: cache slot -v-1 (clamped like the TPU kernel)
-      long long slot = -v - 1;
-      slot = slot < K ? slot : K - 1;
-      row = cache + slot * D;
-    } else {
-      row = pool + (v < R ? v : R - 1) * D;
+  float* bag_out = out + bag * D;
+  for (int d = 0; d < D; ++d) {
+    float acc = 0.f;
+    for (int j = 0; j < H; ++j) {
+      float x = __ldg(lookup(pool, R, cache, K, __ldg(bag_idx + j), D) + d);
+      if (bag_w != nullptr) x = scale(x, __ldg(bag_w + j));
+      acc = combine<COMBINER>(acc, x, j);
     }
-    float x = __ldg(row + d);
-    if (bag_w != nullptr) x = __fmul_rn(x, __ldg(bag_w + j));
-    if (COMBINER == kMax) {
-      acc = (j == 0 || x > acc) ? x : acc;
-    } else {
-      acc = j == 0 ? x : __fadd_rn(acc, x);
-    }
+    bag_out[d] = finish<COMBINER>(acc, H);
   }
-  if (COMBINER == kMean) acc = __fdiv_rn(acc, (float)H);
-  out[i] = acc;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int COMBINER>
+int launch(int route, int blocks, cudaStream_t s, const float* pool,
+           long long R, const int32_t* enc, const float* w, const float* c,
+           long long K, float* o, long long n_bags, int H, int D) {
+  switch (route) {
+    case kVector:
+      bag_vec16_kernel<COMBINER><<<blocks, kVecThreads, 0, s>>>(
+          pool, R, enc, w, c, K, o, n_bags);
+      break;
+    case kWide:
+      bag_wide_kernel<COMBINER><<<blocks, kWideThreads, 0, s>>>(
+          pool, R, enc, w, c, K, o, n_bags);
+      break;
+    case kWideLanes:
+      bag_wide_lanes_kernel<COMBINER><<<blocks, kVecThreads, 0, s>>>(
+          pool, R, enc, w, c, K, o, n_bags);
+      break;
+    default:
+      bag_any_kernel<COMBINER><<<blocks, kAnyThreads, 0, s>>>(
+          pool, R, enc, w, c, K, o, n_bags, H, D);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// `route` and `blocks` come from `bag_route`/`bag_plan`; a vector or wide
+// route whose shape or alignment does not hold is refused here.
 extern "C" int repro_fused_embedding_bag_f32(
     const void* pool, long long R, const void* enc, const void* weights,
     const void* cache, long long K, void* out, long long n_bags, int H,
-    int D, int combiner, void* stream) {
-  const long long n = n_bags * D;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    int D, int combiner, int route, int blocks, void* stream) {
+  if (n_bags * D == 0) return 0;
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  if (route < kGeneric || route > kWideLanes ||
+      combiner < kSum || combiner > kMax)
+    return (int)cudaErrorInvalidValue;
+  if (route != kGeneric) {
+    const bool shape = H == kH && D == (route == kVector ? 16 : 1);
+    const bool aligned = aligned16(pool) && aligned16(enc) &&
+                         aligned16(out) && aligned16(weights) &&
+                         aligned16(cache);    // null is aligned
+    if (!shape) return (int)cudaErrorInvalidValue;
+    if (!aligned) return (int)cudaErrorMisalignedAddress;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pool);
   const int32_t* e = static_cast<const int32_t*>(enc);
@@ -94,19 +289,11 @@ extern "C" int repro_fused_embedding_bag_f32(
   float* o = static_cast<float*>(out);
   switch (combiner) {
     case kSum:
-      fused_embedding_bag_kernel<kSum><<<blocks, threads, 0, s>>>(
-          p, R, e, w, c, K, o, n_bags, H, D);
-      break;
+      return launch<kSum>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D);
     case kMean:
-      fused_embedding_bag_kernel<kMean><<<blocks, threads, 0, s>>>(
-          p, R, e, w, c, K, o, n_bags, H, D);
-      break;
-    case kMax:
-      fused_embedding_bag_kernel<kMax><<<blocks, threads, 0, s>>>(
-          p, R, e, w, c, K, o, n_bags, H, D);
-      break;
+      return launch<kMean>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H,
+                           D);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch<kMax>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D);
   }
-  return (int)cudaGetLastError();
 }

@@ -42,7 +42,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fused_embedding_bag_f32":
-        [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _I, _I, _VP],
+        [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _I, _I, _I, _I, _VP],
     "repro_adagrad_rows_f32":
         [_VP, _VP, _LL, _I, _VP, _VP, _LL, _F, _F, _I, _I, _VP],
     "repro_adam_rows_f32":

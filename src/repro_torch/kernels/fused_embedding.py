@@ -15,8 +15,9 @@ Hot-row cache: the hot rows of table ``t`` are its leading local ids
 Output is bit-identical with the cache on or off.
 
 Forward: ``embedding_bag_forward`` launches K1 (``csrc/fused_embedding.cu``)
-on CUDA tensors and runs its plain version, ``embedding_bag_plain``, on CPU
-tensors. Backward (``torch.autograd.Function``): per-lookup row cotangents,
+on CUDA tensors, on the route ``bag_route`` picks from the shape and the
+arrays' alignment and the grid ``bag_plan`` sizes, and runs its plain
+version, ``embedding_bag_plain``, on CPU tensors. Backward (``torch.autograd.Function``): per-lookup row cotangents,
 a deterministic dedupe (stable sort + sequential segment sum) and one
 scatter into the unique rows, shared with ``sparse_row_grads``.
 """
@@ -107,8 +108,11 @@ def embedding_bag_plain(pool: torch.Tensor, enc: torch.Tensor,
 
     Args:
       pool:     (R, D) store.
-      enc:      (B, T, H) int encoded lookups: ``v < 0`` reads cache slot
-                ``-v-1``, ``v >= 0`` reads pool row ``v`` (both clamped).
+      enc:      (B, T, H) int encoded lookups: with a cache, ``v < 0`` reads
+                cache slot ``-v-1`` clamped to ``K-1``; ``v >= 0`` reads pool
+                row ``v`` clamped to ``R-1``. With no cache (``None`` or
+                ``K = 0``) a negative ``v`` reads pool row 0, as the
+                reference's Pallas kernel does (``jnp.clip(v, 0, R - 1)``).
       weights:  optional (B, T, H) f32 per-lookup weights, applied first.
       cache:    optional (K, D) hot-row cache.
       combiner: "sum" | "mean" (sum / H) | "max".
@@ -132,8 +136,42 @@ def embedding_bag_plain(pool: torch.Tensor, enc: torch.Tensor,
         x = rows[:, :, j]
         out = torch.where(x > out, x, out) if combiner == "max" else out + x
     if combiner == "mean":
-        out = out / H
+        # a tensor divisor: PyTorch's CUDA division by a Python number
+        # multiplies by its reciprocal, which for an H that is no power of
+        # two is not the correctly rounded quotient that K1 computes
+        out = out / torch.full((), H, dtype=out.dtype, device=out.device)
     return out.to(pool.dtype)
+
+
+# K1's routes and launch geometry (csrc/fused_embedding.cu): the main
+# path's shapes have H = 4 lookups per bag (every DLRM config's multi_hot)
+# on the deep D=16 pool and the wide D=1 pool.
+BAG_H = 4
+BAG_THREADS = {"vector": 256, "wide": 64, "generic": 256}   # per block
+BAG_LANES = {"vector": 4, "wide": 1, "generic": 1}          # threads per bag
+_ROUTE_CODE = {"generic": 0, "vector": 1, "wide": 2}
+
+
+def bag_route(D: int, H: int, *arrays: torch.Tensor) -> str:
+    """K1's route for a width ``D``, ``H`` lookups per bag and the arrays
+    it reads and writes (pool, indices, output, and the weights and cache
+    where given): ``"vector"`` for D=16, H=4 (4 lanes per bag, float4 row
+    pieces, one int4 of indices), ``"wide"`` for D=1, H=4 (a bag per
+    thread, one int4 of indices), both only when every array starts on 16
+    bytes; ``"generic"`` otherwise."""
+    if H == BAG_H and D in (16, 1) and all(a.data_ptr() % 16 == 0
+                                           for a in arrays):
+        return "vector" if D == 16 else "wide"
+    return "generic"
+
+
+def bag_plan(n_bags: int, route: str) -> int:
+    """Blocks of ``BAG_THREADS[route]`` threads for K1 over ``n_bags``
+    bags: the grid covers the work, ``BAG_LANES[route]`` threads a bag, one
+    launch. A function of the shape alone; 0 when there is nothing to do."""
+    if n_bags <= 0:
+        return 0
+    return -(-n_bags * BAG_LANES[route] // BAG_THREADS[route])
 
 
 def embedding_bag_cuda(pool: torch.Tensor, enc: torch.Tensor,
@@ -143,14 +181,20 @@ def embedding_bag_cuda(pool: torch.Tensor, enc: torch.Tensor,
     """Launch K1 (``csrc/fused_embedding.cu``) on CUDA tensors.
 
     Replaces the TPU kernel ``_fused_kernel`` of
-    ``repro/kernels/fused_embedding.py``. Bound by bytes: at full Wide&Deep
-    width about 4.5 MB a call, 1.3 us at 3.35 TB/s, so the kernel is
-    launch-bound; one thread per output element lets a bag's D lanes read
-    each row together, with no staging.
+    ``repro/kernels/fused_embedding.py``. Bound by bytes: a full-width
+    Wide&Deep batch reads ~23,400 distinct cold rows of the D=16 pool, the
+    hot rows and the indices and writes the output, 2.57 MB, 0.766 us at
+    3.35 TB/s; in practice by the latency of two dependent loads (index,
+    then row). ``bag_route`` picks the route: at D=16 4 lanes per bag with
+    float4 row pieces, at D=1 a bag per thread, each with the bag's 4
+    indices in one int4 and all its row loads in flight before the first
+    combine; any other shape a bag per thread. ``bag_plan`` sizes the grid.
+    One launch per call with bags; none for ``B * T = 0``.
 
-    Same contract as ``embedding_bag_plain``; f32 pool, int32 indices, all
-    operands contiguous on one CUDA device. Raises on anything else, or if
-    the launch fails.
+    Same contract as ``embedding_bag_plain`` (a negative index with no
+    cache reads pool row 0, an index ``>= R`` reads row ``R-1``); f32 pool,
+    int32 indices, all operands contiguous on one CUDA device. Raises on
+    anything else, or if the launch fails.
     """
     if combiner not in _COMBINER_CODE:
         raise ValueError(f"unknown combiner: {combiner!r}")
@@ -179,14 +223,19 @@ def embedding_bag_cuda(pool: torch.Tensor, enc: torch.Tensor,
             or not cache.is_contiguous()):
         raise ValueError("K1: cache must be a contiguous non-empty (K, D) "
                          "float32 tensor on the pool's device")
-    lib = cuda_lib.load()
     out = torch.empty((B, T, D), dtype=pool.dtype, device=pool.device)
+    if out.numel() == 0:
+        return out
+    route = bag_route(D, H, pool, enc, out,
+                      *(x for x in (weights, cache) if x is not None))
+    lib = cuda_lib.load()
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     status = lib.repro_fused_embedding_bag_f32(
         pool.data_ptr(), R, enc.data_ptr(),
         None if weights is None else weights.data_ptr(),
         None if cache is None else cache.data_ptr(), K,
-        out.data_ptr(), B * T, H, D, _COMBINER_CODE[combiner], stream)
+        out.data_ptr(), B * T, H, D, _COMBINER_CODE[combiner],
+        _ROUTE_CODE[route], bag_plan(B * T, route), stream)
     cuda_lib.check(status, "fused_embedding_bag")
     cuda_lib.LAUNCHES["fused_embedding_bag"] += 1
     return out

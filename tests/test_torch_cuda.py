@@ -3,8 +3,10 @@
 Marked ``cuda``: without a CUDA device every test here skips. On a machine
 with one, run ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-K1 equals its plain version bit for bit, on the card and on the CPU. K2
-and K3 equal their plain versions on the card bit for bit (the kernels
+K1 equals its plain version bit for bit, on the card and on the CPU, on
+each of its routes (vector at D=16, wide at D=1, generic for any other
+shape or alignment), with indices past the pool and, with no cache,
+negative ones. K2 and K3 equal their plain versions on the card bit for bit (the kernels
 spell their arithmetic with the uncontracted ``_rn`` intrinsics in the
 plain versions' order), on both routes, with padding entries anywhere and
 at edge shapes; against the plain versions on the CPU they are held to
@@ -60,37 +62,92 @@ def dev():
 
 
 def _encoded(rng, B, T, H, R, K):
+    """Encoded lookups: pool rows, about 5% of them ``>= R`` (read as row
+    R-1); with a cache about 40% hot slots, without one about 10% negative
+    ids (read as pool row 0)."""
     enc = rng.integers(0, R, (B, T, H)).astype(np.int32)
-    if K:
-        hot = rng.random((B, T, H)) < 0.4
-        enc[hot] = -(rng.integers(0, K, hot.sum()) + 1)
+    enc[rng.random((B, T, H)) < 0.05] = R + 7
+    neg = rng.random((B, T, H)) < (0.4 if K else 0.1)
+    enc[neg] = -(rng.integers(0, max(K, 50), neg.sum()) + 1)
     return enc
 
 
-@pytest.mark.parametrize("D", [16, 1])
+def _k1_on_card(dev, pool, enc, w, cache, combiner, route):
+    """K1 through its entry point on the card: one launch on ``route``,
+    bit for bit with the plain version on the CPU and on the card."""
+    want = fe.embedding_bag_plain(pool.cpu(), enc.cpu(),
+                                  None if w is None else w.cpu(),
+                                  None if cache is None else cache.cpu(),
+                                  combiner)
+    args = [None if x is None else x.to(dev) for x in (pool, enc, w, cache)]
+    B, T, H = enc.shape
+    out = torch.empty((B, T, pool.shape[1]), device=dev)
+    assert fe.bag_route(pool.shape[1], H, *(x for x in (*args, out)
+                                            if x is not None)) == route
+    cuda_lib.reset_launches()
+    got = fe.embedding_bag_forward(*args, combiner)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["fused_embedding_bag"] == int(got.numel() > 0)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, fe.embedding_bag_plain(*args, combiner))
+
+
+@pytest.mark.parametrize("H", [4, 2, 5])
+@pytest.mark.parametrize("D", [16, 1, 4, 6])
 @pytest.mark.parametrize("K", [0, 37])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("combiner", ["sum", "mean", "max"])
-def test_k1_matches_plain(dev, combiner, weighted, K, D):
+def test_k1_matches_plain(dev, combiner, weighted, K, D, H):
+    """D=16 and D=1 with H=4 take the vector and wide routes, every other
+    (D, H) the generic one. With K=0, negative ids read pool row 0."""
     rng = np.random.default_rng(0)
-    B, T, H, R = 33, 5, 4, 1000
+    B, T, R = 33, 5, 1000
     pool = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
     cache = pool[:K].clone() if K else None
     enc = torch.from_numpy(_encoded(rng, B, T, H, R, K))
+    assert (enc < 0).any() and (enc >= R).any()
     w = torch.from_numpy(rng.uniform(0.1, 2, (B, T, H)).astype(np.float32)) \
         if weighted else None
-    want = fe.embedding_bag_plain(pool, enc, w, cache, combiner)
-    cuda_lib.reset_launches()
-    got = fe.embedding_bag_forward(
-        pool.to(dev), enc.to(dev), None if w is None else w.to(dev),
-        None if cache is None else cache.to(dev), combiner)
-    torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["fused_embedding_bag"] == 1
-    assert torch.equal(got.cpu(), want)
-    plain_dev = fe.embedding_bag_plain(
-        pool.to(dev), enc.to(dev), None if w is None else w.to(dev),
-        None if cache is None else cache.to(dev), combiner)
-    assert torch.equal(got, plain_dev)
+    route = ("vector" if D == 16 else "wide" if D == 1 else "generic") \
+        if H == 4 else "generic"
+    _k1_on_card(dev, pool, enc, w, cache, combiner, route)
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data pointer is 4 bytes past 16."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("case", ["empty", "ragged", "unaligned-pool",
+                                  "unaligned-enc", "beyond-R"])
+@pytest.mark.parametrize("D", [16, 1])
+def test_k1_edge_cases(dev, D, case):
+    """B*T = 0 (no launch); a bag count that is no multiple of a block's
+    bags; a pool or index view off 16 bytes (the generic route); every
+    index ``>= R`` or negative with no cache (rows R-1 and 0). Weighted
+    and with a cache unless the case says otherwise; bit for bit."""
+    rng = np.random.default_rng(4)
+    R, K, H = 3000, 19, 4
+    B, T = {"empty": (0, 26), "ragged": (37, 3)}.get(case, (16, 26))
+    pool = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
+    cache = pool[:K].clone()
+    enc = torch.from_numpy(_encoded(rng, B, T, H, R, K))
+    w = torch.from_numpy(rng.uniform(0.1, 2, (B, T, H)).astype(np.float32))
+    route = "vector" if D == 16 else "wide"
+    if case == "beyond-R":
+        enc = torch.where(enc >= 0, R + enc, enc)
+        cache = None
+    elif case.startswith("unaligned"):
+        route = "generic"
+        if case == "unaligned-pool":
+            pool = _unaligned(pool.to(dev))
+        else:
+            enc = _unaligned(enc.to(dev))
+    _k1_on_card(dev, pool, enc, w, cache, "sum", route)
 
 
 def _rows(rng, R, n, live, tail):

@@ -12,6 +12,8 @@ Tolerances:
 * gradients: within 1e-6 absolute + 1e-5 relative (the weight cotangent is
   a D-long dot product whose summation order differs).
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -147,6 +149,75 @@ def test_plain_version_decodes_hot_slots(combiner):
     assert torch.equal(got, want)
     oracle = tref.fused_embedding_bag_ref(pool, dec, w, combiner=combiner)
     torch.testing.assert_close(got, oracle, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("combiner", COMBINERS)
+def test_plain_version_clamps_like_the_pallas_kernel(combiner):
+    """K1's contract, pinned on its plain version: with no cache a negative
+    id reads pool row 0, and an id ``>= R`` reads row ``R-1``, as the
+    reference's Pallas kernel's ``jnp.clip(v, 0, R - 1)`` does; with a
+    cache a slot past ``K-1`` reads slot ``K-1``."""
+    rng = np.random.default_rng(6)
+    R, D = 30, 4
+    pool_np = rng.standard_normal((R, D)).astype(np.float32)
+    pool = torch.from_numpy(pool_np)
+    enc = torch.tensor([[[-1, 5, 30, -7], [29, 1000, -30, 0]]],
+                       dtype=torch.int32)
+    clipped = enc.clamp(0, R - 1)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (1, 2, 4)).astype(np.float32))
+    for cache in (None, pool[:0]):
+        got = tfe.embedding_bag_plain(pool, enc, w, cache, combiner)
+        assert torch.equal(got, tfe.embedding_bag_plain(pool, clipped, w,
+                                                        None, combiner))
+    rows = pool_np[np.clip(enc.numpy(), 0, R - 1)] * w.numpy()[..., None]
+    want = {"sum": rows.sum(2), "mean": rows.sum(2) / 4,
+            "max": rows.max(2)}[combiner]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    cache = pool[torch.tensor([3, 7])].clone()
+    hot = torch.tensor([[[-1, -2, -3, -9]]], dtype=torch.int32)
+    assert torch.equal(
+        tfe.embedding_bag_plain(pool, hot, None, cache, combiner),
+        tfe.embedding_bag_plain(
+            pool, torch.tensor([[[3, 7, 7, 7]]], dtype=torch.int32), None,
+            None, combiner))
+
+
+def test_bag_route_and_plan_follow_the_shape_alone():
+    """K1's route is a function of (D, H) and the arrays' alignment, its
+    grid of the bag count and the route; the .cu's block sizes are the
+    plan's."""
+    def buf(n, offset=0):
+        return torch.zeros(n + 4)[offset:offset + n]
+
+    route = tfe.bag_route
+    assert route(16, 4, buf(64), buf(32)) == "vector"
+    assert route(1, 4, buf(64), buf(32), buf(8)) == "wide"
+    for D, H in ((16, 2), (16, 5), (1, 2), (4, 4), (6, 4), (8, 2), (32, 4)):
+        assert route(D, H, buf(64), buf(32)) == "generic"
+    for D in (16, 1):
+        for off in (1, 2, 3):
+            assert route(D, 4, buf(64), buf(32, off)) == "generic"
+            assert route(D, 4, buf(64, off), buf(32)) == "generic"
+        assert route(D, 4, buf(64), buf(32, 4)) != "generic"
+
+    plan, T, L = tfe.bag_plan, tfe.BAG_THREADS, tfe.BAG_LANES
+    n = 512 * 26                              # the main path's bags
+    assert plan(n, "vector") == 4 * n // 256 == 208
+    assert plan(n, "wide") == n // 64 == 208
+    assert plan(n, "generic") == 52
+    for r in T:
+        assert plan(0, r) == 0 and plan(-3, r) == 0 and plan(1, r) == 1
+        for bags in (1, 7, 63, 64, 65, 1000, 10 ** 6):
+            blocks = plan(bags, r)
+            assert blocks * T[r] >= bags * L[r] > (blocks - 1) * T[r]
+    cu = (Path(tfe.__file__).parents[1] / "csrc" / "fused_embedding.cu"
+          ).read_text()
+    for r, name in (("vector", "kVecThreads"), ("wide", "kWideThreads"),
+                    ("generic", "kAnyThreads")):
+        assert f"constexpr int {name} = {T[r]};" in cu
+    for r, code in tfe._ROUTE_CODE.items():
+        name = {"generic": "kGeneric", "vector": "kVector", "wide": "kWide"}
+        assert f"constexpr int {name[r]} = {code};" in cu
 
 
 @pytest.mark.parametrize("padded", [False, True])
