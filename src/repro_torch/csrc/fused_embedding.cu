@@ -31,11 +31,15 @@
 //   pieces as float4 loads, and only then combines, in order j = 0..3.
 // * D=1, H=4 (wide route): a thread owns a bag: one int4 of indices, 4
 //   scattered word loads, one float4 of weights; 64-thread blocks, so the
-//   main path's 13,312 bags make 208 blocks and reach every SM.
+//   main path's 13,312 bags make 208 blocks and reach every SM. 4 lanes per
+//   bag, one lookup each, combined by shuffles, measured the same or
+//   0.1 us slower (commit 8a45165, PERF.md).
 // * Any other (D, H), or arrays not on 16 bytes (generic route): a thread
 //   owns a bag and walks its D outputs and H lookups with runtime bounds.
-// The row address is a select between the cache and the pool, not a
-// branch, so no row load waits on a decision. The wrapper picks the route
+// A row's address needs nothing but its index (a cache slot or a clamped
+// pool row, never a load), so nvcc issues all of a bag's row loads before
+// the first combine; `cuobjdump -sass` shows one index load, then the 4 row
+// loads, then the adds (PERF.md). The wrapper picks the route
 // (`bag_route` in kernels/fused_embedding.py, from D, H and the arrays'
 // alignment) and the grid (`bag_plan`: the work, one block per 256 or 64
 // threads); one launch per call. On Hopper the hot-row "cache" is the
@@ -62,7 +66,6 @@ constexpr int kMax = 2;
 constexpr int kGeneric = 0;
 constexpr int kVector = 1;
 constexpr int kWide = 2;
-constexpr int kWideLanes = 3;   // sweep candidate (b) for D=1
 
 // threads per block: BAG_THREADS in kernels/fused_embedding.py
 constexpr int kVecThreads = 256;
@@ -70,7 +73,6 @@ constexpr int kWideThreads = 64;
 constexpr int kAnyThreads = 256;
 
 constexpr int kH = 4;           // lookups per bag on the vector and wide routes
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // The first element of the row that encoded index v reads (see the header).
 __device__ __forceinline__ const float* lookup(
@@ -181,33 +183,6 @@ __global__ void __launch_bounds__(kWideThreads) bag_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// D=1, H=4, sweep candidate (b): 4 lanes per bag, one lookup each, combined
-// in order by shuffles
-// ---------------------------------------------------------------------------
-template <int COMBINER>
-__global__ void __launch_bounds__(kVecThreads) bag_wide_lanes_kernel(
-    const float* __restrict__ pool, long long R,
-    const int32_t* __restrict__ enc, const float* __restrict__ weights,
-    const float* __restrict__ cache, long long K, float* __restrict__ out,
-    long long n_bags) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < n_bags * kH;
-  float x = 0.f;
-  if (in) {
-    const int v = __ldg(enc + i);
-    const float w = weights != nullptr ? __ldg(weights + i) : 1.f;
-    x = __ldg(lookup(pool, R, cache, K, v, 1));
-    if (weights != nullptr) x = scale(x, w);
-  }
-  const int first = (threadIdx.x & 31) & ~(kH - 1);
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < kH; ++j)
-    acc = combine<COMBINER>(acc, __shfl_sync(kFullMask, x, first + j), j);
-  if (in && (i & (kH - 1)) == 0) out[i >> 2] = finish<COMBINER>(acc, kH);
-}
-
-// ---------------------------------------------------------------------------
 // any other (D, H), generic route: a bag per thread, runtime bounds
 // ---------------------------------------------------------------------------
 template <int COMBINER>
@@ -249,10 +224,6 @@ int launch(int route, int blocks, cudaStream_t s, const float* pool,
       bag_wide_kernel<COMBINER><<<blocks, kWideThreads, 0, s>>>(
           pool, R, enc, w, c, K, o, n_bags);
       break;
-    case kWideLanes:
-      bag_wide_lanes_kernel<COMBINER><<<blocks, kVecThreads, 0, s>>>(
-          pool, R, enc, w, c, K, o, n_bags);
-      break;
     default:
       bag_any_kernel<COMBINER><<<blocks, kAnyThreads, 0, s>>>(
           pool, R, enc, w, c, K, o, n_bags, H, D);
@@ -270,7 +241,7 @@ extern "C" int repro_fused_embedding_bag_f32(
     int D, int combiner, int route, int blocks, void* stream) {
   if (n_bags * D == 0) return 0;
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  if (route < kGeneric || route > kWideLanes ||
+  if (route < kGeneric || route > kWide ||
       combiner < kSum || combiner > kMax)
     return (int)cudaErrorInvalidValue;
   if (route != kGeneric) {

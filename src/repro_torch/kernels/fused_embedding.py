@@ -17,9 +17,10 @@ Output is bit-identical with the cache on or off.
 Forward: ``embedding_bag_forward`` launches K1 (``csrc/fused_embedding.cu``)
 on CUDA tensors, on the route ``bag_route`` picks from the shape and the
 arrays' alignment and the grid ``bag_plan`` sizes, and runs its plain
-version, ``embedding_bag_plain``, on CPU tensors. Backward (``torch.autograd.Function``): per-lookup row cotangents,
-a deterministic dedupe (stable sort + sequential segment sum) and one
-scatter into the unique rows, shared with ``sparse_row_grads``.
+version, ``embedding_bag_plain``, on CPU tensors. Backward
+(``torch.autograd.Function``): per-lookup row cotangents, a deterministic
+dedupe (stable sort + sequential segment sum) and one scatter into the
+unique rows, shared with ``sparse_row_grads``.
 """
 from __future__ import annotations
 
