@@ -70,9 +70,30 @@ heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
     for K4, bytes at 3.35 TB/s for K5; K4's SIMT route timed on f32 inputs
     of the same shape (bound: flops at the f32 peak).
 
-Prints the ``kernels`` JSON line (K1-K5), ``slice`` and ``lm`` JSON lines,
-and last ``{"ok": true, "device": {...}}``. Full details go to
-``build/chip_smoke.json``.
+Live re-planning, checkpoints and elastic resume (full-width Wide&Deep,
+64 hot rows, n_ps=4 padded, fused adagrad), run after phase 6:
+
+12. the launcher with ``--replan-every 10 --ckpt-every 5 --ckpt-dir`` (a
+    temporary directory under ``build/``, removed at the end): exactly one
+    re-plan, at step 10; K1 and K2 launched twice in every one of the 20
+    steps; exactly-once coverage; blobs 15 and 20 on disk. Then
+    ``--resume --steps 5`` there: back on the stamped plan and padded
+    layout from step 20. Then adam with ``--replan-every 5``: one re-plan
+    at step 5, K3 in all 10 steps. Then, from the state at step 10 and the
+    run's decision, bit for bit: the forward loss of a remapped probe batch
+    across ``apply_replan``; one fused adagrad step under each plan (loss,
+    ``mlp.w0``, pools and accumulators after the inverse permutation);
+    ``restore_on_plan`` of the stamped pre-re-plan snapshot from disk; and
+    ``resume_dlrm_stamped(onto_n_ps=2)`` of the post-re-plan blob. K1 on
+    both post-re-plan pools (measured cache, unequal ranges) within K1_ULP
+    of its plain version for sum, mean and max. Times: ``apply_replan``,
+    ``save_with_layout`` (memory tier) and the disk persist,
+    ``restore_with_layout`` from disk, ``HotTableTracker.observe`` per
+    batch, and launcher steps/s without and with ``--replan-every``.
+
+Prints the ``slice``, ``lm`` and ``replan`` JSON lines, the ``kernels``
+JSON line (K1-K5), and last ``{"ok": true, "device": {...}}``. Full
+details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -746,6 +767,270 @@ def phase_profile(report, dev, run, n_steps=10):
 
 
 # ---------------------------------------------------------------------------
+# live re-planning, layout-stamped checkpoints and elastic resume
+# ---------------------------------------------------------------------------
+REPLAN_FLAGS = SLICE_FLAGS + ["--fused-update", "--ckpt-every", "5"]
+
+
+def _probe(cfg, dev, remapper=None):
+    """A raw batch past the launcher's first 20 (sample ids of batch 21) on
+    the card, through ``remapper`` when one is given."""
+    from repro_torch.data.synthetic import criteo_batch
+    from repro_torch.launch import train as launch
+    ids = list(launch.sample_order(21, cfg.batch_size))[20]
+    raw = criteo_batch(cfg, launch.DATA_SEED, ids)
+    if remapper is not None:
+        raw = remapper.remap_batch(raw)
+    return launch.to_device(raw, dev)
+
+
+def _loss(params, batch, cfg, plan):
+    import torch
+    from repro_torch.models.dlrm import dlrm_loss
+    with torch.no_grad():
+        return float(dlrm_loss(params, batch, cfg, plan))
+
+
+def _sync_s(fn):
+    """Wall seconds of ``fn()`` ending in a device synchronise; returns
+    (result, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_replan(report, dev, steps_per_s_plain):
+    """Phase 12: the re-plan/resume path of the launcher at full width, the
+    re-planning API bit for bit, K1 under the post-re-plan plan, and the
+    ``replan`` timing line."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.flash_checkpoint import FlashCheckpoint
+    from repro_torch.core.sharding_service import HotTableTracker
+    from repro_torch.data.synthetic import criteo_batch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import fused_embedding as fe
+    from repro_torch.launch import train as launch
+    from repro_torch.models.dlrm import _pool2d
+    from repro_torch.sharding import policy as pol
+    from repro_torch.train import elastic, replan, trainer
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="replan_ckpt_", dir=ROOT / "build"))
+    info = {}
+    try:
+        # 1. the launcher: 20 steps, a re-plan polled every 10, blobs every 5
+        ck = str(tmp / "run")
+        log("phase 12 replan: 20 steps, --replan-every 10, --ckpt-every 5")
+        run, counts = _driven(
+            REPLAN_FLAGS + ["--steps", "20", "--replan-every", "10",
+                            "--ckpt-dir", ck],
+            ("fused_embedding_bag", "adagrad_row_update"))
+        check([d.observed_at for d in run.decisions] == [10],
+              f"re-plans at {[d.observed_at for d in run.decisions]}, "
+              "not one at step 10")
+        decision = run.decisions[0]
+        # 2 of each per step, every step: so also the 10 after the re-plan
+        for k in ("fused_embedding_bag", "adagrad_row_update"):
+            check(counts[k] == 2 * 20, f"{k}: {counts[k]} launches in 20 "
+                  "steps, not 2 per step")
+        check(run.exactly_once, "the 20-step run lost exactly-once coverage")
+        check(run.layout == pol.padded_layout_for_ranges(
+            decision.vocab_ranges), "the run did not end on the re-plan's "
+              "padded ranges")
+        blobs = FlashCheckpoint(ck).valid_steps()
+        check(blobs == [15, 20], f"blobs on disk: {blobs}, not [15, 20]")
+        info["run"] = {
+            "losses": run.losses, "counts": counts, "blobs": blobs,
+            "steps_per_s": len(run.losses) / run.seconds,
+            "replan_at": decision.observed_at,
+            "imbalance": [decision.imbalance_before,
+                          decision.imbalance_after],
+            "cache_rows": sum(decision.table_hot),
+            "rows_per_shard": list(run.layout.shard_sizes),
+            "max_range": run.layout.max_range}
+
+        # 2. resume in the same directory: the stamped plan and layout
+        log("phase 12 replan: --resume, 5 steps")
+        res_run, res_counts = _driven(
+            REPLAN_FLAGS + ["--steps", "5", "--replan-every", "10",
+                            "--ckpt-dir", ck, "--resume"],
+            ("fused_embedding_bag", "adagrad_row_update"))
+        check(res_run.restored_step == 20 and res_run.state["step"] == 25,
+              f"resumed from {res_run.restored_step} to step "
+              f"{res_run.state['step']}, not 20 to 25")
+        check(res_run.layout == run.layout and res_run.plan == run.plan,
+              "--resume did not come back on the stamped plan and layout")
+        check(res_run.exactly_once, "the resumed run lost coverage")
+        info["resume"] = {"losses": res_run.losses, "counts": res_counts}
+        del res_run
+        shutil.rmtree(ck)
+
+        # adam: K3 after a re-plan at step 5
+        log("phase 12 replan: adam, 10 steps, --replan-every 5")
+        adam_run, adam_counts = _driven(
+            REPLAN_FLAGS + ["--optimizer", "adam", "--steps", "10",
+                            "--replan-every", "5"],
+            ("fused_embedding_bag", "adam_row_update"))
+        check([d.observed_at for d in adam_run.decisions] == [5],
+              f"adam re-plans at {[d.observed_at for d in adam_run.decisions]}")
+        check(adam_counts["adam_row_update"] == 2 * 10,
+              f"K3: {adam_counts['adam_row_update']} launches in 10 steps")
+        info["adam"] = {"losses": adam_run.losses, "counts": adam_counts}
+        del adam_run
+
+        # launcher steps/s with --replan-every and no checkpoints
+        replan_only, _ = _driven(
+            SLICE_FLAGS + ["--fused-update", "--steps", "20",
+                           "--replan-every", "10"],
+            ("fused_embedding_bag", "adagrad_row_update"))
+        steps_per_s_replan = len(replan_only.losses) / replan_only.seconds
+        del replan_only
+
+        # 3. the API from the state at step 10 (the run's own, recomputed:
+        # the launcher and the step are deterministic) and the decision
+        s10_run, _ = _driven(SLICE_FLAGS + ["--fused-update", "--steps", "10"],
+                             ("fused_embedding_bag", "adagrad_row_update"))
+        cfg, opt, old_plan = s10_run.cfg, s10_run.opt, s10_run.plan
+        state = s10_run.state
+        del s10_run
+        remapper = replan.EmbeddingRemapper(cfg.table_rows)
+        ckpt = FlashCheckpoint(str(tmp / "api"), keep=2)
+        _, save_s = _sync_s(lambda: replan.save_with_layout(
+            ckpt, state, 10, remapper, layout=old_plan.layout))
+        ckpt.wait()
+        persist_s = ckpt.last_persist_seconds
+        probe = _probe(cfg, dev)
+        loss_old = _loss(state["params"], probe, cfg, old_plan)
+        res, apply_s = _sync_s(lambda: replan.apply_replan(
+            state, cfg, opt, decision, remapper=remapper,
+            layout=old_plan.layout, plan=old_plan))
+        probe_new = _probe(cfg, dev, remapper)
+        loss_new = _loss(res.state["params"], probe_new, cfg, res.plan)
+        check(loss_new == loss_old, f"forward loss across the re-plan: "
+              f"{loss_new!r} vs {loss_old!r}")
+        # the post-re-plan stamped blob, before the step below updates the
+        # pools in place
+        replan.save_with_layout(ckpt, res.state, 11, remapper,
+                                decision.table_hot, decision.vocab_ranges,
+                                layout=res.layout)
+        ckpt.wait()
+
+        # 4. K1 under the post-re-plan plan: measured cache, unequal ranges
+        k1_ulp = 0
+        for key in ("tables", "wide"):
+            pool = _pool2d(res.state["params"][key], res.layout)
+            for combiner in ("sum", "mean", "max"):
+                plan = res.plan.with_combiner(combiner)
+                enc, cache = fe.kernel_inputs(pool, probe_new["sparse"], plan)
+                got = fe.embedding_bag_cuda(pool, enc, None, cache, combiner)
+                want = fe.embedding_bag_plain(pool, enc, None, cache,
+                                              combiner)
+                torch.cuda.synchronize()
+                u = ulp_distance(got, want)
+                k1_ulp = max(k1_ulp, u)
+                check(u <= K1_ULP, f"K1 after the re-plan, {key} "
+                      f"{combiner}: {u} ULP > {K1_ULP}")
+
+        # one fused adagrad step under each plan
+        cuda_lib.reset_launches()
+        s_new, m_new = res.step_fn(res.state, probe_new)
+        torch.cuda.synchronize()
+        new_counts = dict(cuda_lib.LAUNCHES)
+        for k in ("fused_embedding_bag", "adagrad_row_update"):
+            check(new_counts[k] == 2, f"{k}: {new_counts[k]} launches in a "
+                  "step under the re-planned plan")
+        step_old = trainer.make_dlrm_train_step(cfg, opt, plan=old_plan)
+        s_old, m_old = step_old(state, probe)
+        check(float(m_new["loss"]) == float(m_old["loss"]),
+              f"step loss {float(m_new['loss'])!r} vs "
+              f"{float(m_old['loss'])!r}")
+        check(torch.equal(s_new["params"]["mlp.w0"],
+                          s_old["params"]["mlp.w0"]), "mlp.w0 differs")
+        inv = torch.as_tensor(np.argsort(decision.permutation), device=dev)
+        for key in ("tables", "wide"):
+            for tree in ("params", "opt"):
+                a = s_new[tree] if tree == "params" else s_new[tree]["acc"]
+                b = s_old[tree] if tree == "params" else s_old[tree]["acc"]
+                check(torch.equal(res.layout.unpad_rows(a[key]),
+                                  old_plan.layout.unpad_rows(b[key])[inv]),
+                      f"{tree} {key} differ after the inverse permutation")
+        del s_new, s_old, state, res
+
+        # restore_on_plan of the pre-re-plan snapshot, from disk
+        ckpt.drop_memory_tier()
+        (_, _, _, _, _, _), restore_s = _sync_s(
+            lambda: replan.restore_with_layout(cfg, opt, ckpt, step=10,
+                                               device=dev))
+        st2, restored, _, _, rm2 = replan.restore_on_plan(
+            cfg, opt, "adagrad", ckpt, decision, device=dev, step=10,
+            plan=old_plan)
+        check(restored == 10, f"restore_on_plan restored step {restored}")
+        probe2 = _probe(cfg, dev, rm2)
+        loss_restored = _loss(st2["params"], probe2, cfg,
+                              old_plan.with_replan(decision.table_hot,
+                                                   pol.padded_layout_for_ranges(
+                                                       decision.vocab_ranges)))
+        check(loss_restored == loss_old, f"restore_on_plan loss "
+              f"{loss_restored!r} vs {loss_old!r}")
+        del st2
+        # the post-re-plan stamped blob onto 2 PS shards
+        st3, _, rm3, hot3, _, lay3 = elastic.resume_dlrm_stamped(
+            cfg, opt, ckpt, device=dev, onto_n_ps=2, step=11)
+        check(lay3.n_ps == 2 and hot3 == decision.table_hot,
+              f"resume_dlrm_stamped: n_ps {lay3.n_ps}, hot {hot3}")
+        probe3 = _probe(cfg, dev, rm3)
+        loss_n2 = _loss(st3["params"], probe3, cfg,
+                        old_plan.with_replan(hot3, lay3))
+        check(loss_n2 == loss_old, f"resume onto n_ps=2: loss {loss_n2!r} "
+              f"vs {loss_old!r}")
+        del st3
+
+        # the tracker's host cost per batch at full width
+        tracker = HotTableTracker(cfg.table_rows, n_ps=4, hot_budget=64)
+        batches = [criteo_batch(cfg, launch.DATA_SEED, ids)["sparse"]
+                   for ids in launch.sample_order(10, cfg.batch_size)]
+        t0 = time.perf_counter()
+        for sp in batches:
+            tracker.observe(sp)
+        observe_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    line = {
+        "card": nvidia_smi_line(),
+        "apply_replan_ms": apply_s * 1e3,
+        "save_with_layout_memory_ms": save_s * 1e3,
+        "persist_s": persist_s, "restore_with_layout_s": restore_s,
+        "observe_ms_per_batch": observe_ms,
+        "launcher_steps_per_s": {"plain": steps_per_s_plain,
+                                 "replan_every_10": steps_per_s_replan,
+                                 "replan_and_ckpt": info["run"][
+                                     "steps_per_s"]},
+        "replan_at": decision.observed_at,
+        "imbalance": info["run"]["imbalance"],
+        "cache_rows": info["run"]["cache_rows"],
+        "rows_per_shard": info["run"]["rows_per_shard"],
+        "k1_max_ulp_after_replan": k1_ulp}
+    info["line"] = line
+    report["replan"] = info
+    log(f"phase 12 replan: re-plan at step {decision.observed_at} "
+        f"(imbalance {line['imbalance'][0]:.3f} -> "
+        f"{line['imbalance'][1]:.3f}, {line['cache_rows']} cache rows, "
+        f"rows/shard {line['rows_per_shard']}); resume, restore_on_plan, "
+        f"n_ps=2 and one step bit-identical; K1 {k1_ulp} ULP; apply "
+        f"{line['apply_replan_ms']:.1f} ms, save {save_s * 1e3:.1f} ms, "
+        f"persist {persist_s:.2f} s, restore {restore_s:.2f} s, observe "
+        f"{observe_ms:.2f} ms/batch")
+    return line
+
+
+# ---------------------------------------------------------------------------
 # the LM slice: llama3.2-3b serving, K4 and K5
 # ---------------------------------------------------------------------------
 LM_ARCH = "llama3.2-3b"
@@ -1200,6 +1485,8 @@ def main() -> int:
         slice_info["profile"] = phase_profile(report, dev, run)
         del run
         torch.cuda.empty_cache()
+        replan_line = phase_replan(report, dev,
+                                   slice_info["launcher_steps_per_s"])
         lm_errs = phase_lm_kernels(report, dev)
         k4_counts, fwd = phase_lm_forward_decode(report, dev)
         card_cpu = phase_lm_card_cpu(report, dev)
@@ -1221,6 +1508,7 @@ def main() -> int:
     log(f"card: {smi}; total {report['seconds']:.1f} s")
     print(json.dumps({"slice": slice_info}))
     print(json.dumps({"lm": lm_info}))
+    print(json.dumps({"replan": replan_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of ``repro``: the DLRM training path and dense-LM serving.
+"""PyTorch/CUDA port of ``repro``: DLRM training with live re-planning,
+flash checkpoints and elastic resume, and dense-LM serving.
 
-The package mirrors ``repro``'s module layout (``configs``, ``data``,
-``sharding``, ``kernels``, ``models``, ``train``, ``serve``, ``launch``) so
-each module has one counterpart there. It imports ``torch`` and never JAX,
+The package mirrors ``repro``'s module layout (``configs``, ``core``,
+``data``, ``sharding``, ``kernels``, ``models``, ``train``, ``serve``,
+``launch``) so each module has one counterpart there. It imports ``torch`` and never JAX,
 and it keeps its own copies of what it needs from ``repro``.
 
 Kernels: the five Pallas kernels of ``repro`` (K1-K3 on the DLRM training

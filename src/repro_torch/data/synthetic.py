@@ -1,13 +1,14 @@
 """Deterministic synthetic Criteo-like batches, addressed by sample index.
 
-Port of ``criteo_batch``, ``zipf_indices`` and ``_rng_for`` from
-``repro/data/synthetic.py``. They are numpy, and their bytes are identical
-to the reference's: every sample is a pure function of (seed, sample index),
-so the two packages train on the same data.
+Port of ``criteo_batch``, ``zipf_indices``, ``_rng_for``, ``RowFreqCounter``
+and ``estimate_row_freq`` from ``repro/data/synthetic.py``. They are numpy,
+and their bytes are identical to the reference's: every sample is a pure
+function of (seed, sample index), so the two packages train on the same
+data. ``lm_batch`` comes with LM training.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -34,6 +35,54 @@ def zipf_indices(rng: np.random.Generator, rows: int, size,
         x = ((rows ** (1.0 - alpha) - 1.0) * u + 1.0) ** (1.0 / (1.0 - alpha))
     # x is continuous in [1, rows]; floor then shift so ranks start at 0
     return np.minimum(x.astype(np.int64), rows) - 1
+
+
+class RowFreqCounter:
+    """Exact per-row lookup counts over the pooled table, fed one (B, T, H)
+    batch of per-table-local ids at a time; the input of the placement
+    planners and of the hot-row cache sizing."""
+
+    def __init__(self, table_rows: Sequence[int]):
+        self.table_rows = tuple(int(r) for r in table_rows)
+        self.offsets = np.concatenate(
+            ([0], np.cumsum(self.table_rows)[:-1])).astype(np.int64)
+        self.total_rows = int(sum(self.table_rows))
+        self.counts = np.zeros((self.total_rows,), np.int64)
+        self.n_lookups = 0
+
+    def update(self, sparse: np.ndarray) -> None:
+        """sparse: (B, T, H) per-table-local ids from one batch."""
+        sparse = np.asarray(sparse)
+        flat = (sparse + self.offsets[None, :, None]).reshape(-1)
+        self.counts += np.bincount(flat, minlength=self.total_rows)
+        self.n_lookups += flat.size
+
+    def top_k(self, k: int) -> np.ndarray:
+        """Global row ids of the k most-frequent rows (hottest first)."""
+        k = min(int(k), self.total_rows)
+        part = np.argpartition(self.counts, -k)[-k:]
+        return part[np.argsort(-self.counts[part], kind="stable")]
+
+    def hit_rate(self, table_hot: Sequence[int]) -> float:
+        """Fraction of observed lookups a per-table hot-prefix cache serves."""
+        if self.n_lookups == 0:
+            return 0.0
+        hot = 0
+        for off, k in zip(self.offsets, table_hot):
+            hot += int(self.counts[off:off + int(k)].sum())
+        return hot / self.n_lookups
+
+
+def estimate_row_freq(cfg: DLRMConfig, seed: int, n_samples: int = 2048,
+                      batch_size: int = 256,
+                      start: int = 0) -> RowFreqCounter:
+    """Row-frequency estimate from a deterministic synthetic sample range."""
+    ctr = RowFreqCounter(cfg.table_rows)
+    for lo in range(start, start + n_samples, batch_size):
+        hi = min(lo + batch_size, start + n_samples)
+        batch = criteo_batch(cfg, seed, np.arange(lo, hi))
+        ctr.update(batch["sparse"])
+    return ctr
 
 
 def criteo_batch(cfg: DLRMConfig, seed: int, indices: np.ndarray,

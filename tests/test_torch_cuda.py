@@ -15,6 +15,9 @@ the ULP bounds of the reference's fused-update tests (params 64, moments
 so the CPU result may sit an ULP away. Rows the update does not touch stay
 bit-identical. A reduced
 train step on the card matches the CPU within 2e-5 and is deterministic.
+After a live re-plan onto unequal padded ranges with a measured cache
+plan, K1 still equals its plain version, and the forward loss, one fused
+step and a restore onto the new plan are bit-exact on the card.
 
 K4 and K5 agree with their plain versions within 2e-5 in f32 and, in
 bf16, within 1e-3 plus 8e-3 of the output (one bf16 step): both compute in
@@ -37,6 +40,8 @@ from repro_torch.configs import dlrm_models as tcfg  # noqa: E402
 from repro_torch.configs.registry import get_dlrm  # noqa: E402
 from repro_torch.data.synthetic import criteo_batch  # noqa: E402
 from repro_torch.configs.base import reduce_config  # noqa: E402
+from repro_torch.core.flash_checkpoint import FlashCheckpoint  # noqa: E402
+from repro_torch.core.sharding_service import HotTableTracker  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -45,10 +50,11 @@ from repro_torch.kernels import fused_embedding as fe  # noqa: E402
 from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.dlrm import dlrm_loss  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.sharding import policy as tpol  # noqa: E402
-from repro_torch.train import optim, trainer  # noqa: E402
+from repro_torch.train import optim, replan, trainer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -307,6 +313,100 @@ def test_reduced_step_on_card_matches_cpu_and_is_deterministic(dev, opt_name):
     assert gpu2 == gpu
     for k in ("tables", "wide"):
         assert torch.equal(s1["params"][k], s2["params"][k])
+
+
+def _replanned(dev, opt_name="adagrad"):
+    """A padded reduced Wide&Deep state on the card, 3 fused steps in, and
+    the decision a drifted tracker takes on it (unequal balanced ranges,
+    a measured cache plan)."""
+    cfg = dataclasses.replace(tcfg.reduced_dlrm(get_dlrm("wide_deep")),
+                              table_rows=(512,) * 6, zipf_alpha=1.05,
+                              hot_rows_k=48)
+    R = cfg.total_embedding_rows
+    old = tpol.padded_layout_for_ranges(tpol.uniform_vocab_ranges(R, 4))
+    opt = optim.make(opt_name, 0.05)
+    plan = cfg.embedding_plan(layout=old, sparse_update=True)
+    step = trainer.make_dlrm_train_step(cfg, opt, plan=plan)
+    state = trainer.make_dlrm_train_state(
+        cfg, opt, torch.Generator(device=dev).manual_seed(0), layout=old)
+    tracker = HotTableTracker(cfg.table_rows, n_ps=4, hot_budget=48,
+                              decay=0.8, trigger=1.2, cooldown=0,
+                              min_lookups=512)
+    for i in range(3):
+        b = criteo_batch(cfg, 7, np.arange(256 * i, 256 * i + 256))
+        tracker.observe(b["sparse"])
+        state, _ = step(state, launch.to_device(b, dev))
+    for i in range(6):
+        b = criteo_batch(cfg, 7, np.arange(2048 + 256 * i, 2304 + 256 * i))
+        tracker.observe((b["sparse"] + 157) % 512)
+    decision = tracker.maybe_replan()
+    assert decision is not None
+    return cfg, opt, plan, step, state, decision
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean", "max"])
+def test_k1_under_a_replanned_plan_matches_plain(dev, combiner):
+    """K1 on a pool padded on unequal balanced ranges, under a measured
+    ``table_hot``: bit for bit with its plain version and with the flat,
+    cache-off output."""
+    cfg, _, _, _, state, decision = _replanned(dev)
+    new = tpol.padded_layout_for_ranges(decision.vocab_ranges)
+    assert new.max_range > cfg.total_embedding_rows // 4
+    flat = torch.randn((cfg.total_embedding_rows, cfg.embed_dim),
+                       generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    pool = new.pad_rows(flat).reshape(new.padded_rows, cfg.embed_dim)
+    rm = replan.EmbeddingRemapper(cfg.table_rows)
+    rm.compose(decision.permutation)
+    raw = criteo_batch(cfg, 13, np.arange(256))
+    idx = launch.to_device(rm.remap_batch(raw), dev)["sparse"]
+    plan = tpol.EmbeddingPlan(offsets=cfg.table_offsets, combiner=combiner,
+                              table_hot=decision.table_hot, layout=new)
+    enc, cache = fe.kernel_inputs(pool, idx, plan)
+    assert cache is not None and int((enc < 0).sum()) > 0
+    got = fe.embedding_bag_cuda(pool, enc, None, cache, combiner)
+    want = fe.embedding_bag_plain(pool, enc, None, cache, combiner)
+    assert torch.equal(got, want)
+    base = fe.fused_embedding_bag(
+        flat, idx, plan=dataclasses.replace(plan, table_hot=None,
+                                            layout=None))
+    assert torch.equal(got, base)
+
+
+def test_replan_on_card_is_bit_exact(dev):
+    """On the card: the forward loss across a padded re-plan, one fused
+    adagrad step under each plan (K1 and K2 launched under the new one),
+    and a stamped old-plan snapshot restored onto the new plan."""
+    cfg, opt, plan, step, state, decision = _replanned(dev)
+    probe_raw = criteo_batch(cfg, 13, np.arange(10_000, 10_256))
+    probe_raw["sparse"] = (probe_raw["sparse"] + 157) % 512
+    probe = launch.to_device(probe_raw, dev)
+    loss_old = float(dlrm_loss(state["params"], probe, cfg, plan))
+    ckpt = FlashCheckpoint()
+    remapper = replan.EmbeddingRemapper(cfg.table_rows)
+    replan.save_with_layout(ckpt, state, state["step"], remapper,
+                            layout=plan.layout)
+    res = replan.apply_replan(state, cfg, opt, decision, remapper=remapper,
+                              layout=plan.layout, plan=plan)
+    probe_new = launch.to_device(remapper.remap_batch(probe_raw), dev)
+    assert float(dlrm_loss(res.state["params"], probe_new, cfg,
+                           res.plan)) == loss_old
+    cuda_lib.reset_launches()
+    s_new, m_new = res.step_fn(res.state, probe_new)
+    assert cuda_lib.LAUNCHES["fused_embedding_bag"] == 2
+    assert cuda_lib.LAUNCHES["adagrad_row_update"] == 2
+    s_old, m_old = step(state, probe)
+    assert float(m_new["loss"]) == float(m_old["loss"])
+    assert torch.equal(s_new["params"]["mlp.w0"], s_old["params"]["mlp.w0"])
+    inv = torch.as_tensor(np.argsort(decision.permutation), device=dev)
+    for k in ("tables", "wide"):
+        assert torch.equal(res.layout.unpad_rows(s_new["params"][k]),
+                           plan.layout.unpad_rows(s_old["params"][k])[inv])
+    state2, _, _, _, _ = replan.restore_on_plan(
+        cfg, opt, "adagrad", ckpt, decision, device=dev, plan=plan)
+    assert state2["params"]["tables"].device.type == "cuda"
+    assert float(dlrm_loss(state2["params"], probe_new, cfg,
+                           res.plan)) == loss_old
 
 
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 8e-3)}
