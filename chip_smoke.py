@@ -91,8 +91,31 @@ Live re-planning, checkpoints and elastic resume (full-width Wide&Deep,
     ``restore_with_layout`` from disk, ``HotTableTracker.observe`` per
     batch, and launcher steps/s without and with ``--replan-every``.
 
-Prints the ``slice``, ``lm`` and ``replan`` JSON lines, the ``kernels``
-JSON line (K1-K5), and last ``{"ok": true, "device": {...}}``. Full
+The self-healing layer, run last (full-width Wide&Deep, 64 hot rows,
+n_ps=4 padded, fused update):
+
+13. (a) the launcher's supervised mode, 30 steps with synchronous
+    checkpoints every 5: a clean run, whose slowest step (a checkpoint
+    step) sets the step deadline (DEADLINE_FACTOR times it); then the same
+    run under SELFHEAL_CHAOS, which must give exactly the events of
+    SELFHEAL_WANT (an elastic shrink onto 3 PS shards, a watchdog restore,
+    and a fall-back past the corrupted step-20 blob while shrinking onto
+    2) and a loss at every step equal (``==``) to the clean run's; then
+    adam under ``oom@5,oom@9``, whose recoveries must be
+    ``drop_hot_cache`` and ``shrink_batch_to_256`` with no step lost (K1
+    then runs without a cache, K3 under the supervisor). Counts are set to
+    0 before each run and read after: K1 and K2 (K3) launch exactly twice
+    per executed step and per warm-up. (b) the job master with four
+    workers on the card (reduced Wide&Deep, n_ps=4 padded): a baseline
+    and ``kill@4``, ``stop@7``, ``kill_ckpt@3``; each cell's merged loss
+    log equals the baseline's to the ulp, every non-final incarnation
+    died by SIGKILL, no worker's process group is left, and each worker's
+    last incarnation reports its K1 launches. Re-exec (death to ready) and
+    restore latencies are reported.
+
+Prints the ``slice``, ``lm``, ``replan`` and ``selfheal`` JSON lines, the
+``kernels`` JSON line (K1-K5; K1-K3 with their phase-13 launches under
+``launches_selfheal``), and last ``{"ok": true, "device": {...}}``. Full
 details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -101,6 +124,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1031,6 +1055,278 @@ def phase_replan(report, dev, steps_per_s_plain):
 
 
 # ---------------------------------------------------------------------------
+# the self-healing layer: supervisor, fault injection, job master, workers
+# ---------------------------------------------------------------------------
+SELFHEAL_STEPS = 30
+SELFHEAL_CKPT_EVERY = 5
+# ps_loss@22 is the crash after the corruption: it is what makes the
+# restore fall back past the damaged step-20 blob to step 15
+SELFHEAL_CHAOS = "ps_loss@8,hang@13,ckpt_corrupt@17,ps_loss@22"
+SELFHEAL_WANT = [                 # (kind, step, detail) besides stragglers
+    ("fault_detected", 8, {"fault": "ps_loss"}),
+    ("recovered", 5, {"action": "elastic_shrink", "surviving_n_ps": 3,
+                      "steps_lost": 3}),
+    ("fault_detected", 13, {"fault": "hang"}),
+    ("recovered", 10, {"action": "restore", "steps_lost": 3}),
+    ("fault_detected", 22, {"fault": "ps_loss"}),
+    ("recovered", 15, {"action": "elastic_shrink", "surviving_n_ps": 2,
+                       "steps_lost": 7}),
+]
+SELFHEAL_ADAM = ["--optimizer", "adam", "--steps", "12", "--chaos",
+                 "oom@5,oom@9"]
+DEADLINE_FACTOR = 4.0         # step deadline over the slowest clean step
+PROC_STEPS = 10
+PROC_CKPT_EVERY = 3
+PROC_HEARTBEAT_S = 8.0
+PROC_CELLS = [("base", ""), ("kill_at4", "kill@4"), ("stop_at7", "stop@7"),
+              ("killckpt_at3", "kill_ckpt@3")]
+
+
+def _launched(counts, expect, what):
+    """Fail unless every kernel of ``expect`` launched exactly as often as
+    ``expect`` says."""
+    for kernel, n in expect.items():
+        check(counts[kernel] == n, f"{what}: {kernel} launched "
+              f"{counts[kernel]} times, not {n}")
+
+
+def _supervised_run(argv, kernels):
+    """One supervised launcher run, counts set to 0 just before it and
+    read just after, and the wall time of every completed step attempt.
+
+    Every executed step launches each kernel of ``kernels`` twice (the deep
+    and the wide pool), and so does the warm-up step of every step build
+    (the start and each recovery); an attempt a fault stopped launches
+    nothing."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import train as launch
+    from repro_torch.train import supervisor as sup_mod
+
+    times = {}
+    observe = sup_mod.Supervisor._observe_step_time
+
+    def record(self, gstep, dt):
+        times[gstep] = dt             # the step's last completed attempt
+        observe(self, gstep, dt)
+
+    sup_mod.Supervisor._observe_step_time = record
+    cuda_lib.reset_launches()
+    try:
+        run = launch.main(argv)
+    finally:
+        sup_mod.Supervisor._observe_step_time = observe
+    counts = dict(cuda_lib.LAUNCHES)
+    rep = run.report
+    n_faults = sum(e.kind == "fault_detected" for e in rep.events)
+    runs = rep.step_attempts - n_faults + 1 + rep.restarts
+    _launched(counts, {k: 2 * runs for k in kernels}, f"{argv}")
+    losses = [run.job.losses[s] for s in sorted(run.job.losses)]
+    check(rep.completed and rep.final_step == int(argv[argv.index(
+        "--steps") + 1]), f"supervised run did not complete: {rep}")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return run, counts, times
+
+
+def _events(rep):
+    return [(e.kind, e.step, e.detail) for e in rep.events
+            if e.kind != "straggler_detected"]
+
+
+def _stragglers(rep, ckpt_every):
+    """Straggler events, each with whether its step wrote a checkpoint."""
+    return [{"step": e.step, "step_time_s": e.detail["step_time_s"],
+             "ewma_s": e.detail["ewma_s"],
+             "checkpoint_step": (e.step + 1) % ckpt_every == 0}
+            for e in rep.events if e.kind == "straggler_detected"]
+
+
+def _supervision(rep):
+    lat = rep.recovery_latencies_s
+    return {"restarts": rep.restarts, "steps_lost": rep.steps_lost,
+            "step_attempts": rep.step_attempts,
+            "productive_steps": rep.productive_steps,
+            "goodput": rep.goodput_fraction, "wall_s": rep.wall_seconds,
+            "recovery_latencies_s": lat,
+            "recovery_latency_mean_s": sum(lat) / len(lat) if lat else 0.0}
+
+
+def phase_selfheal(report, dev):
+    """Phase 13: the self-healing layer at full width in process (clean,
+    chaos and OOM-degraded supervised runs through the launcher) and the
+    job master's worker processes on the card; the ``selfheal`` line."""
+    import shutil
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="selfheal_", dir=ROOT / "build"))
+    flags = SLICE_FLAGS + ["--fused-update", "--n-ps", "4", "--ckpt-every",
+                           str(SELFHEAL_CKPT_EVERY)]
+    adagrad = ("fused_embedding_bag", "adagrad_row_update")
+    try:
+        # (a) clean: the step + checkpoint times the deadline is chosen from
+        log(f"phase 13 selfheal: clean supervised run, {SELFHEAL_STEPS} "
+            "steps")
+        clean, c_clean, times = _supervised_run(
+            flags + ["--steps", str(SELFHEAL_STEPS), "--supervise",
+                     "--ckpt-dir", str(tmp / "clean")], adagrad)
+        check(clean.report.restarts == 0, "the clean run restarted")
+        batch = clean.job.cfg.batch_size
+        ckpt_steps = [s for s in times
+                      if (s + 1) % SELFHEAL_CKPT_EVERY == 0]
+        plain = sorted(t for s, t in times.items() if s not in ckpt_steps)
+        step_s = plain[len(plain) // 2]
+        ckpt_step_s = max(times[s] for s in ckpt_steps)
+        deadline = round(DEADLINE_FACTOR * max(times.values()), 3)
+        clean_info = {
+            **_supervision(clean.report), "step_s_median": step_s,
+            "ckpt_step_s_max": ckpt_step_s,
+            "ckpt_save_memory_s": clean.job.ckpt.last_save_seconds,
+            "ckpt_persist_s": clean.job.ckpt.last_persist_seconds,
+            "stragglers": _stragglers(clean.report, SELFHEAL_CKPT_EVERY),
+            "launches": c_clean}
+        shutil.rmtree(tmp / "clean")
+
+        # (a) the same run under PS loss, a hang and a corrupted blob
+        log(f"phase 13 selfheal: chaos {SELFHEAL_CHAOS}, step deadline "
+            f"{deadline} s")
+        chaos, c_chaos, _ = _supervised_run(
+            flags + ["--steps", str(SELFHEAL_STEPS), "--chaos",
+                     SELFHEAL_CHAOS, "--step-deadline", str(deadline),
+                     "--ckpt-dir", str(tmp / "chaos")], adagrad)
+        got = _events(chaos.report)
+        check(len(got) == len(SELFHEAL_WANT) and all(
+            g[:2] == w[:2] and all(g[2].get(k) == v for k, v in w[2].items())
+            for g, w in zip(got, SELFHEAL_WANT)),
+            f"chaos events {got}, not {SELFHEAL_WANT}")
+        check(chaos.job.n_ps == 2, f"ended on {chaos.job.n_ps} PS shards")
+        check(any(e["kind"] == "corrupt_blob_fallback"
+                  for e in chaos.job.ckpt.events),
+              "no fall-back past the corrupted blob")
+        check(chaos.job.losses == clean.job.losses,
+              "the recovered trajectory differs from the clean one: "
+              f"{chaos.job.losses} vs {clean.job.losses}")
+        chaos_info = {**_supervision(chaos.report), "plan": SELFHEAL_CHAOS,
+                      "deadline_s": deadline,
+                      "events": [list(e) for e in got],
+                      "stragglers": _stragglers(chaos.report,
+                                                SELFHEAL_CKPT_EVERY),
+                      "launches": c_chaos}
+        shutil.rmtree(tmp / "chaos")
+
+        # (a) adam under two OOMs: the degradation ladder, K1 without cache
+        log("phase 13 selfheal: adam under oom@5,oom@9")
+        adam, c_adam, _ = _supervised_run(
+            flags + SELFHEAL_ADAM + ["--ckpt-dir", str(tmp / "adam")],
+            ("fused_embedding_bag", "adam_row_update"))
+        actions = [e.detail.get("action") for e in adam.report.events
+                   if e.kind == "recovered"]
+        half = batch // 2                 # 256 at full width
+        check(actions == ["drop_hot_cache", f"shrink_batch_to_{half}"]
+              and adam.job.cfg.batch_size == half
+              and adam.job.cfg.hot_rows_k == 0,
+              f"OOM ladder: {actions}, batch {adam.job.cfg.batch_size}")
+        check(adam.report.steps_lost == 0,
+              f"OOM recovery lost {adam.report.steps_lost} steps")
+        adam_info = {**_supervision(adam.report), "actions": actions,
+                     "launches": c_adam}
+        shutil.rmtree(tmp / "adam")
+        del clean, chaos, adam
+
+        # (b) worker processes on the card under the job master, together
+        log("phase 13 selfheal: job master, workers " +
+            ", ".join(f"{n} ({c or 'no fault'})" for n, c in PROC_CELLS))
+        proc_info = _proc_cells(tmp, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {
+        "card": nvidia_smi_line(),
+        "supervised": {"arch": "wide_deep", "full": True,
+                       "steps": SELFHEAL_STEPS,
+                       "ckpt_every": SELFHEAL_CKPT_EVERY,
+                       "clean": clean_info, "chaos": chaos_info,
+                       "adam": adam_info},
+        "process": proc_info}
+    report["selfheal"] = line
+    log(f"phase 13 selfheal: chaos bit-exact ({chaos_info['restarts']} "
+        f"restarts, {chaos_info['steps_lost']} steps lost, goodput "
+        f"{chaos_info['goodput']:.3f}, recovery "
+        f"{chaos_info['recovery_latencies_s']} s); clean step "
+        f"{step_s * 1e3:.1f} ms, checkpoint step {ckpt_step_s:.2f} s; "
+        f"stragglers {[s['step'] for s in chaos_info['stragglers']]}; "
+        f"re-exec {proc_info['reexec_latencies_s']} s, restore "
+        f"{proc_info['restore_latencies_s']} s")
+    counts = {k: c_clean[k] + c_chaos[k] + c_adam[k] for k in c_clean}
+    return line, counts
+
+
+def _final_launches(spec, incarnation):
+    """The launch counts the worker's last incarnation printed on exit."""
+    text = (Path(spec.workdir) / f"{spec.name}.{incarnation}.log").read_text()
+    found = [ln for ln in text.splitlines() if ln.startswith("launches ")]
+    check(found, f"{spec.name}: no launch counts in its log")
+    return json.loads(found[-1][len("launches "):])
+
+
+def _proc_cells(tmp, dev):
+    """Baseline and kill cells as workers of one job master on the card:
+    each cell's merged loss log equals the baseline's to the ulp."""
+    from repro_torch.train.job_master import (JobMaster, JobMasterConfig,
+                                              WorkerSpec)
+
+    specs = [WorkerSpec(name=name, workdir=str(tmp / "proc"),
+                        ckpt_dir=str(tmp / "proc" / f"ckpt_{name}"),
+                        steps=PROC_STEPS, ckpt_every=PROC_CKPT_EVERY,
+                        n_ps=4, padded=True, chaos_proc=chaos,
+                        device=dev.type)
+             for name, chaos in PROC_CELLS]
+    master = JobMaster(specs, JobMasterConfig(
+        heartbeat_deadline_s=PROC_HEARTBEAT_S, run_deadline_s=300.0))
+    report = master.run()
+    check(report.completed, f"job master: {report.events}")
+    for ev in master.events:
+        if ev.kind == "spawned":
+            try:
+                os.killpg(ev.detail["pid"], 0)
+            except ProcessLookupError:
+                continue
+            raise SmokeFailure(f"worker group {ev.detail['pid']} left alive")
+
+    def merged(spec):
+        best = {}
+        for rec in sorted(spec.read_losses(),
+                          key=lambda r: r["incarnation"]):
+            best[rec["step"]] = rec["loss"]
+        return [best[s] for s in sorted(best)]
+
+    base = merged(specs[0])
+    check(len(base) == PROC_STEPS and all(map(math.isfinite, base)),
+          f"baseline losses {base}")
+    check(report.exit_history["base"] == [0], "the baseline was re-exec'd")
+    latencies, launches = {}, {}
+    for spec in specs:
+        history = report.exit_history[spec.name]
+        if spec.chaos_proc:
+            check(history[-1] == 0 and len(history) >= 2 and all(
+                rc == -9 for rc in history[:-1]),
+                f"{spec.name}: exits {history}")
+            check(merged(spec) == base, f"{spec.name}: losses "
+                  f"{merged(spec)} vs baseline {base}")
+        latencies[spec.name] = [
+            ev.detail["reexec_latency_s"] for ev in master.events
+            if ev.kind == "reexec_ready" and ev.worker == spec.name]
+        launches[spec.name] = _final_launches(spec, len(history) - 1)
+        check(launches[spec.name]["fused_embedding_bag"] > 0,
+              f"{spec.name}: K1 never launched in the worker")
+    return {"cells": dict(PROC_CELLS), "steps": PROC_STEPS,
+            "heartbeat_deadline_s": PROC_HEARTBEAT_S,
+            "exit_history": report.exit_history, "reexecs": report.reexecs,
+            "reexec_latencies_s": latencies,
+            "restore_latencies_s": report.restore_latencies_s,
+            "wall_s": report.wall_seconds,
+            "final_incarnation_launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # the LM slice: llama3.2-3b serving, K4 and K5
 # ---------------------------------------------------------------------------
 LM_ARCH = "llama3.2-3b"
@@ -1177,6 +1473,8 @@ def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
     shape (batch 1, f32 cache of ``max_len`` slots, 12 tokens in it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.models import transformer as tf
     cache = tf.init_cache_lm(cfg, 1, max_len, torch.float32, dev)
     toks = torch.arange(3, 15, dtype=torch.int32, device=dev)[None]
@@ -1185,6 +1483,7 @@ def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
     for _ in range(3):                                 # warm-up
         logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
     torch.cuda.synchronize()
+    cuda_lib.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1192,16 +1491,29 @@ def _profile_decode(params, cfg, dev, n_steps=8, max_len=128):
             logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
             int(torch.argmax(logits[0, -1]))           # the engine's sync
         wall_us = (time.perf_counter() - t0) * 1e6
+    launches = cuda_lib.LAUNCHES["decode_attention"]
     info, device = _device_summary(prof, wall_us, n_steps, top=8)
     info["cache_slots"] = max_len
-    k5 = [(us, c) for k, us, c in device
-          if "decode_split_kernel" in k or "decode_combine_kernel" in k]
+    k5 = [(us, c) for k, us, c in device if "decode_split_kernel" in k]
+    combine = sum(c for k, _, c in device if "decode_combine_kernel" in k)
+    records = sum(c for _, c in k5)
     info["k5_ms_per_step"] = sum(us for us, _ in k5) / n_steps / 1e3
-    info["k5_kernels_per_step"] = sum(c for _, c in k5) / n_steps
+    # the wrapper's count is exact; the profiler's activity records are
+    # not (runs of this phase saw 2,255-2,257 device records per step, and
+    # one run 222 K5 records for 224 launches), so the profiler only bounds
+    # the kernels from above and gives their time
+    info["k5_kernels_per_step"] = launches / n_steps
+    info["k5_profiler_records_per_step"] = records / n_steps
+    check(da.split_plan(1, cfg.n_kv_heads, max_len) == 1,
+          f"K5 splits a cache of {max_len} slots")
+    check(launches == cfg.num_layers * n_steps,
+          f"K5 launched {launches} times in {n_steps} decode steps over "
+          f"{max_len} slots, not once per layer")
     if device:
-        check(info["k5_kernels_per_step"] == cfg.num_layers,
-              f"K5 ran {info['k5_kernels_per_step']} kernels per decode "
-              f"step over {max_len} slots, not one per layer")
+        check(combine == 0, f"K5's combine kernel ran {combine} times over "
+              f"{max_len} slots")
+        check(0 < records <= launches, f"the profiler saw {records} K5 "
+              f"kernels for {launches} launches")
     return info
 
 
@@ -1253,7 +1565,8 @@ def phase_lm_forward_decode(report, dev):
         f"{prof['wall_ms_per_step']:.3f} ms wall (profiler on), "
         f"{prof['device_ms_per_step']:.3f} ms on the device, idle share "
         f"{prof['device_idle_share']}, K5 {prof['k5_ms_per_step']:.4f} "
-        f"ms/step in {prof['k5_kernels_per_step']:.0f} kernels, "
+        f"ms/step in {prof['k5_kernels_per_step']:.0f} launches "
+        f"({prof['k5_profiler_records_per_step']:.3f} profiler records), "
         f"{prof['device_events_per_step']:.0f} device events/step")
     for t in prof["top_device_time"]:
         log(f"  {t['ms_per_step']:.4f} ms x{t['calls_per_step']:.0f} "
@@ -1493,6 +1806,14 @@ def main() -> int:
         k5_counts, served = phase_lm_serve(report, dev)
         kernels += phase_lm_timing(report, dev, k4_counts, k5_counts,
                                    lm_errs)
+        torch.cuda.empty_cache()
+        selfheal_line, selfheal_counts = phase_selfheal(report, dev)
+        for entry in kernels:
+            name = entry["name"].split()[1]
+            if name in selfheal_counts and name in (
+                    "fused_embedding_bag", "adagrad_row_update",
+                    "adam_row_update"):
+                entry["launches_selfheal"] = selfheal_counts[name]
         lm_info = {"arch": LM_ARCH, "forward_vs_decode_rel": fwd[
             "rel_max_diff"], "card_vs_cpu_rel": card_cpu, "serve": served,
             "decode_profile": fwd["decode_profile"]}
@@ -1509,6 +1830,7 @@ def main() -> int:
     print(json.dumps({"slice": slice_info}))
     print(json.dumps({"lm": lm_info}))
     print(json.dumps({"replan": replan_line}))
+    print(json.dumps({"selfheal": selfheal_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

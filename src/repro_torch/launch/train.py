@@ -1,4 +1,4 @@
-"""DLRM training launcher (port of ``train_dlrm`` of ``repro/launch/train.py``).
+"""DLRM training launcher (port of the DLRM modes of ``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch wide_deep \\
         --full --fused-update --padded-shards --steps 20 \\
@@ -20,13 +20,34 @@ moments, re-pads them onto the balanced (unequal) PS ranges
 ``table_hot`` cache plan. It checkpoints every ``--ckpt-every`` steps
 (keyed by the global step); ``--resume`` restores the newest stamped blob
 and continues on its plan and layout, with the sample stream restarting at
-sample 0, as in the reference. Chaos runs and the supervisor are not part
-of this port yet.
+sample 0, as in the reference.
+
+Two more modes, as in the reference, run training under the self-healing
+layer. ``--chaos SPEC`` (or ``--supervise``) runs ``train_dlrm_supervised``:
+a ``DLRMJob`` under the ``Supervisor`` (step watchdog ``--step-deadline``,
+EWMA straggler detection, capped restarts ``--max-restarts``), the scripted
+faults fired through the trainer, data and checkpoint hooks, checkpoints
+persisted synchronously every ``--ckpt-every`` steps. ``--chaos-proc SPEC``
+runs ``train_dlrm_chaos_proc``: the reduced job in a real worker process
+(``repro_torch.train.worker_main`` on ``--device``) under the
+``JobMaster``, which re-execs it from the newest valid checkpoint when the
+plan kills or stops it (``--heartbeat-deadline``, ``--workdir``). Both
+print the reference's ``CHAOS`` / ``CHAOS-PROC`` line and write the event
+log to ``--event-log``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wide_deep \\
+        --steps 40 --chaos ps_loss@10,hang@20 --step-deadline 5.0 \\
+        --ckpt-every 5 --padded-shards [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch wide_deep \\
+        --steps 8 --chaos-proc kill_loop@4x2 --ckpt-every 3 \\
+        --padded-shards [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional,
                     Sequence, Tuple)
@@ -144,7 +165,50 @@ def build_parser() -> argparse.ArgumentParser:
                     help="restore the newest valid checkpoint of --ckpt-dir")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
+    # --- chaos / self-healing ----------------------------------------------
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="scripted fault plan, e.g. 'ps_loss@10,hang@20:0.5' "
+                         "(see repro_torch.core.faults); implies --supervise")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the corruption-byte RNG (determinism)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="train under the recovery supervisor (watchdog + "
+                         "restore-with-backoff) even without injected faults")
+    ap.add_argument("--chaos-proc", default=None, metavar="SPEC",
+                    help="process-level fault plan, e.g. 'kill@5' or "
+                         "'kill_loop@3x2,stop@7': train in a real worker "
+                         "process under the job master, which re-execs it "
+                         "from the newest valid checkpoint")
+    ap.add_argument("--workdir", default=None,
+                    help="job-master working directory (heartbeats, loss "
+                         "logs, worker logs); default: a fresh temp dir")
+    ap.add_argument("--heartbeat-deadline", type=float, default=30.0,
+                    help="job-master staleness deadline in seconds after a "
+                         "worker's first 'ready' heartbeat")
+    ap.add_argument("--step-deadline", type=float, default=None,
+                    help="watchdog per-step deadline in seconds (None "
+                         "disables)")
+    ap.add_argument("--max-restarts", type=int, default=5,
+                    help="capped restart (re-exec) budget")
+    ap.add_argument("--event-log", default=None, metavar="PATH",
+                    help="write the structured event log (JSONL) here")
     return ap
+
+
+def dlrm_config(args) -> DLRMConfig:
+    """The DLRM config of the launcher's flags (``--arch``, ``--full``,
+    ``--zipf-alpha``, ``--hot-rows``, ``--batch``); refuses
+    ``--fused-update`` with an optimizer that has no row-update seam."""
+    cfg = get_dlrm(args.arch)
+    if not args.full:
+        cfg = reduced_dlrm(cfg)
+    if args.fused_update and optim.make(args.optimizer,
+                                        args.lr).update_rows is None:
+        raise SystemExit(f"--fused-update: optimizer {args.optimizer!r} has no "
+                         "row-update seam (use adagrad or adam)")
+    return dataclasses.replace(cfg, zipf_alpha=args.zipf_alpha,
+                               hot_rows_k=args.hot_rows,
+                               batch_size=args.batch or cfg.batch_size)
 
 
 def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
@@ -157,12 +221,7 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
     layout however many re-plans came before.
     """
     device = resolve_device(args.device)
-    cfg = get_dlrm(args.arch)
-    if not args.full:
-        cfg = reduced_dlrm(cfg)
-    cfg = dataclasses.replace(cfg, zipf_alpha=args.zipf_alpha,
-                              hot_rows_k=args.hot_rows,
-                              batch_size=args.batch or cfg.batch_size)
+    cfg = dlrm_config(args)
     R = cfg.total_embedding_rows
     opt = optim.make(args.optimizer, args.lr)
     print(f"arch={cfg.name} kind={cfg.kind} params={cfg.param_count():,} "
@@ -197,9 +256,6 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
               f"max_range={layout.max_range} physical rows/shard="
               f"{list(layout.shard_sizes)} "
               f"(+{layout.padded_rows - R} pad rows)")
-    if args.fused_update and opt.update_rows is None:
-        raise SystemExit(f"--fused-update: optimizer {args.optimizer!r} has no "
-                         "row-update seam (use adagrad or adam)")
     plan = cfg.embedding_plan(table_hot=table_hot, layout=layout,
                               sparse_update=args.fused_update)
     if args.fused_update:
@@ -280,8 +336,136 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
                     decisions, restored_step, ok)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
-    return train_dlrm(build_parser().parse_args(argv))
+class SupervisedRun(NamedTuple):
+    """What ``train_dlrm_supervised`` ran: the job (its ``losses`` by global
+    step, its checkpoint store and final layout) and the supervisor's
+    report."""
+    job: Any
+    report: Any
+
+
+def train_dlrm_supervised(args) -> SupervisedRun:
+    """DLRM training under the self-healing supervisor (``--chaos`` /
+    ``--supervise``), on ``args.device``.
+
+    The scripted fault plan fires through the trainer/data/checkpoint hooks;
+    the supervisor detects each abnormality (watchdog deadline, typed fault,
+    EWMA outlier) and recovers from layout-stamped flash checkpoints,
+    persisted synchronously so that every blob is restorable.
+    """
+    from repro_torch.core.faults import FaultInjector, parse_chaos_spec
+    from repro_torch.train.supervisor import (DLRMJob, Supervisor,
+                                              SupervisorConfig)
+
+    device = resolve_device(args.device)
+    cfg = dlrm_config(args)
+    plan = parse_chaos_spec(args.chaos or "")
+    injector = FaultInjector(plan, seed=args.chaos_seed) if plan.specs else None
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="chaos_ckpt_")
+    ckpt = FlashCheckpoint(
+        ckpt_dir, async_persist=False,      # sync: every blob restorable
+        fault_hook=injector.on_persist if injector else None)
+    if injector is not None:
+        injector.bind_checkpoint(ckpt)
+    print(f"arch={cfg.name} kind={cfg.kind} params={cfg.param_count():,} "
+          f"supervised (chaos plan: {plan if plan.specs else 'none'}; "
+          f"ckpt -> {ckpt_dir}) device={device}")
+
+    job = DLRMJob(cfg, ckpt, opt_name=args.optimizer, lr=args.lr,
+                  ckpt_every=args.ckpt_every, n_ps=args.n_ps,
+                  padded=args.padded_shards,
+                  sparse_update=args.fused_update, injector=injector,
+                  device=device)
+    sup = Supervisor(job, SupervisorConfig(
+        step_deadline_s=args.step_deadline, max_restarts=args.max_restarts,
+        seed=args.chaos_seed))
+    try:
+        report = sup.run(args.steps, resume=args.resume)
+    finally:
+        if args.event_log:                  # log survives a failed run too
+            sup.write_event_log(args.event_log)
+    for ev in report.events:
+        print(f"  event step={ev.step:5d} {ev.kind} {ev.detail}")
+    lat = report.recovery_latencies_s
+    mean_lat = sum(lat) / len(lat) if lat else 0.0
+    print(f"CHAOS completed={report.completed} final_step={report.final_step} "
+          f"final_loss={report.final_loss:.6f} restarts={report.restarts} "
+          f"steps_lost={report.steps_lost} "
+          f"goodput={report.goodput_fraction:.3f} "
+          f"recovery_latency_mean_s={mean_lat:.4f}")
+    if args.event_log:
+        sup.write_event_log(args.event_log, report)
+        print(f"event log -> {args.event_log}")
+    return SupervisedRun(job, report)
+
+
+class ChaosProcRun(NamedTuple):
+    """What ``train_dlrm_chaos_proc`` ran: the worker's spec (its loss,
+    fault and heartbeat files) and the job master's report."""
+    spec: Any
+    report: Any
+
+
+def train_dlrm_chaos_proc(args) -> ChaosProcRun:
+    """DLRM training in a real worker process under the job master
+    (``--chaos-proc``).
+
+    The worker (``repro_torch.train.worker_main`` on ``args.device``, the
+    reduced config) is an OS process the plan SIGKILLs or SIGSTOPs; the
+    master detects the death by exit code or stale heartbeat and re-execs a
+    fresh incarnation that resumes from the newest valid layout-stamped
+    checkpoint.
+    """
+    from repro_torch.train.job_master import (JobMaster, JobMasterConfig,
+                                              WorkerSpec)
+
+    resolve_device(args.device)             # fail here, not in the worker
+    workdir = args.workdir or tempfile.mkdtemp(prefix="chaos_proc_")
+    spec = WorkerSpec(
+        name="worker0", workdir=workdir,
+        ckpt_dir=args.ckpt_dir or os.path.join(workdir, "ckpt"),
+        arch=args.arch, steps=args.steps, ckpt_every=args.ckpt_every,
+        n_ps=args.n_ps, padded=args.padded_shards,
+        chaos_proc=args.chaos_proc, opt_name=args.optimizer, lr=args.lr,
+        device=args.device)
+    master = JobMaster([spec], JobMasterConfig(
+        heartbeat_deadline_s=args.heartbeat_deadline,
+        max_reexecs=args.max_restarts, seed=args.chaos_seed))
+    print(f"arch={args.arch} chaos-proc plan: {args.chaos_proc or 'none'} "
+          f"(workdir -> {workdir}, ckpt -> {spec.ckpt_dir}) "
+          f"device={args.device}")
+    try:
+        report = master.run()
+    finally:
+        if args.event_log:                  # log survives a failed run too
+            master.write_event_log(args.event_log)
+    for ev in report.events:
+        print(f"  event {ev.kind} worker={ev.worker} {ev.detail}")
+    t = report.measured_timings()
+    losses = spec.read_losses()
+    final_loss = losses[-1]["loss"] if losses else float("nan")
+    print(f"CHAOS-PROC completed={report.completed} "
+          f"final_steps={report.final_steps} reexecs={report.reexecs} "
+          f"exit_history={report.exit_history} final_loss={final_loss:.6f} "
+          f"reexec_mean_s={t.reexec_s():.3f} "
+          f"restore_mean_s={t.flash_ckpt_load_s:.3f} "
+          f"wall_s={report.wall_seconds:.1f}")
+    if args.event_log:
+        master.write_event_log(args.event_log, report)
+        print(f"event log -> {args.event_log}")
+    return ChaosProcRun(spec, report)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Dispatch on the flags as the reference does: ``--chaos-proc`` runs
+    ``train_dlrm_chaos_proc``, ``--chaos``/``--supervise``
+    ``train_dlrm_supervised``, anything else ``train_dlrm``."""
+    args = build_parser().parse_args(argv)
+    if args.chaos_proc is not None:
+        return train_dlrm_chaos_proc(args)
+    if args.chaos or args.supervise:
+        return train_dlrm_supervised(args)
+    return train_dlrm(args)
 
 
 if __name__ == "__main__":

@@ -84,7 +84,12 @@ def like_tree(cfg: DLRMConfig, optimizer: Optimizer,
               layout=None) -> Dict[str, Any]:
     """Restore template of ``make_dlrm_train_state(cfg, optimizer, ...,
     layout=layout)``: its tree with a ``LeafSpec`` per leaf, drawn from no
-    generator and allocating nothing at full width."""
+    generator and allocating nothing at full width.
+
+    The optimizer initialises a probe (one row per table, on the CPU); each
+    of its mirrors of a parameter takes that parameter's full shape. No
+    operation runs on meta tensors: the first one in a process costs about
+    a second of dispatch set-up, which a restart would wait for."""
     probe = dataclasses.replace(cfg, table_rows=(1,) * cfg.n_tables)
     names = dlrm_mod.init_dlrm(probe, torch.Generator().manual_seed(0))
     rows = ((cfg.total_embedding_rows,) if layout is None
@@ -93,8 +98,15 @@ def like_tree(cfg: DLRMConfig, optimizer: Optimizer,
     params = {k: torch.empty(rows + tuple(v.shape[1:]) if k in pooled
                              else tuple(v.shape), device="meta")
               for k, v in names.items()}
-    tree = to_tree({"params": params, "opt": optimizer.init(params),
-                    "step": 0})
+
+    def full(name, leaf):
+        shape = params[name].shape if name in params else leaf.shape
+        return torch.empty(tuple(shape), dtype=leaf.dtype, device="meta")
+
+    opt = {key: {k: full(k, v) for k, v in sub.items()}
+           if isinstance(sub, Mapping) else full(None, sub)
+           for key, sub in optimizer.init(names).items()}
+    tree = to_tree({"params": params, "opt": opt, "step": 0})
 
     def spec(x):
         if isinstance(x, Mapping):

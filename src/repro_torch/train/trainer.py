@@ -17,7 +17,7 @@ A train state is ``{"params": {name: tensor}, "opt": optimizer state,
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -41,6 +41,28 @@ def _grads(loss: torch.Tensor, leaves: Dict[str, torch.Tensor]
            ) -> Dict[str, torch.Tensor]:
     names = list(leaves)
     return dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
+
+
+def with_step_hooks(step_fn: Callable, *, before: Optional[Callable] = None,
+                    after: Optional[Callable] = None) -> Callable:
+    """Wrap a train step with host-side hooks.
+
+    ``before(state, batch)`` runs immediately before the step: it is the
+    trainer-layer seam a fault injector
+    (``repro_torch.core.faults.FaultInjector.before_step``) fires through.
+    The fused step updates the pools in place, so ``before`` also runs
+    before anything is mutated: a fault it raises leaves the state as it
+    was. ``after(new_state, metrics)`` runs once the step returns.
+    """
+    def wrapped(state, batch):
+        if before is not None:
+            before(state, batch)
+        new_state, metrics = step_fn(state, batch)
+        if after is not None:
+            after(new_state, metrics)
+        return new_state, metrics
+
+    return wrapped
 
 
 def make_dlrm_train_step(cfg: DLRMConfig, optimizer: Optimizer,

@@ -1,7 +1,10 @@
 """Guards of the PyTorch/CUDA port (``src/repro_torch``).
 
 * nothing in the port, nor ``chip_smoke.py``, imports JAX or ``repro``;
-* the port imports with JAX unavailable;
+* the port imports with JAX unavailable; the job master and the worker's
+  entry module import with torch unavailable too (the master stays out of
+  the accelerator stack's failure domain; a worker beats "boot" before it
+  imports torch);
 * entry points raise without CUDA unless asked for the CPU, and the kernel
   wrappers take no tensor that is not on a CUDA device;
 * the kernel library refuses to build without ``nvcc`` instead of falling
@@ -80,6 +83,22 @@ def test_port_imports_without_jax():
     assert "imported" in proc.stdout
 
 
+def test_job_master_and_worker_entry_import_without_torch():
+    code = ("import sys\n"
+            "for name in ('torch', 'jax', 'numpy', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "import repro_torch.train.job_master as jm\n"
+            "import repro_torch.train.worker_main as wm\n"
+            "import repro_torch.core.migration\n"
+            "assert callable(jm.JobMaster) and callable(wm.main)\n"
+            "print('stdlib only')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "stdlib only" in proc.stdout
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -94,6 +113,21 @@ def test_launcher_raises_without_cuda_unless_cpu(monkeypatch):
         launch.train_dlrm(args)
     run = launch.main(["--steps", "1", "--device", "cpu"])
     assert len(run.losses) == 1
+
+
+@pytest.mark.parametrize("mode", [["--supervise"], ["--chaos", "oom@1"],
+                                  ["--chaos-proc", "kill@1"]])
+def test_self_healing_modes_raise_without_cuda_unless_cpu(monkeypatch,
+                                                          tmp_path, mode):
+    _no_cuda(monkeypatch)
+    argv = ["--steps", "1", "--ckpt-dir", str(tmp_path / "ck"),
+            "--workdir", str(tmp_path / "wd")] + mode
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch.main(argv)
+    assert not (tmp_path / "wd").exists()       # no worker was spawned
+    if mode[0] != "--chaos-proc":
+        run = launch.main(argv + ["--device", "cpu"])
+        assert run.report.completed and run.report.final_step == 1
 
 
 def test_resolve_device_rejects_unknown_devices():
