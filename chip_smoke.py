@@ -113,9 +113,31 @@ n_ps=4 padded, fused update):
     last incarnation reports its K1 launches. Re-exec (death to ready) and
     restore latencies are reported.
 
-Prints the ``slice``, ``lm``, ``replan`` and ``selfheal`` JSON lines, the
-``kernels`` JSON line (K1-K5; K1-K3 with their phase-13 launches under
-``launches_selfheal``), and last ``{"ok": true, "device": {...}}``. Full
+The resource manager, run after phase 13:
+
+14. (a) ``examples/elastic_dlrm_train_torch.py`` at its full config (the
+    reference example's: 26 tables, 18,240,000 pooled rows, D=16, MLP
+    256/128/64, batch 256; dense path, adagrad) for ``--steps 160`` on the
+    card, under the port's ``ClusterBrain``: the executed steps, the
+    exactly-once coverage across the failover and the straggler split,
+    and the stage-1/2/3 decisions equal LIFECYCLE_WANT (what the
+    reference's control plane gives, held there by
+    ``tests/test_torch_brain.py``); one config-DB record after
+    ``complete``; losses finite and the mean of the last 10 below the
+    first; AUC in (0.5, 1]; K1 exactly twice per executed step plus twice
+    for the eval, and no other kernel. Launcher steps/s, the median step
+    (through ``float(loss)``), peak memory and the checkpoint's tiers.
+    (b) the first 10 jobs of the port's trace copy through
+    ``repro_torch.sim.replay.replay`` under ``dlrover_rm`` and
+    ``static_user`` (6 h, seed 3, failure seed 77, amplitude 0.15), with
+    the default ``TIMINGS`` and with phase 13's measured flash restore and
+    worker re-exec, each replay in its own process; a second run with the
+    card's timings gives the same summary and event log.
+
+Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle`` and
+``sim`` JSON lines, the ``kernels`` JSON line (K1-K5; K1-K3 with their
+phase-13 launches under ``launches_selfheal``, K1 with phase 14's under
+``launches_lifecycle``), and last ``{"ok": true, "device": {...}}``. Full
 details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -1082,6 +1104,24 @@ PROC_CELLS = [("base", ""), ("kill_at4", "kill@4"), ("stop_at7", "stop@7"),
               ("killckpt_at3", "kill_ckpt@3")]
 
 
+# ---------------------------------------------------------------------------
+# the resource manager: the lifecycle example and the cloud simulator
+# ---------------------------------------------------------------------------
+LIFECYCLE_STEPS = 160
+# what the reference's control plane gives for the lifecycle's events at
+# --steps 160 (executed steps: the failover repeats part of a shard; the
+# reference's stage 3 resizes nothing, its synthetic memory feed stays far
+# below 16 GB); tests/test_torch_brain.py holds these to the reference
+LIFECYCLE_WANT = {
+    "steps": 164, "coverage": [True, 40960, 0],
+    "stage1": {"w": 2, "p": 1, "cpu_w": 4, "cpu_p": 4, "mem_w": 8.0,
+               "mem_p": 16.0},
+    "stage2": {"dlrm-100m": {"w": 4, "p": 2, "cpu_w": 2.0, "cpu_p": 4.0,
+                             "mem_w": 8.0, "mem_p": 16.0}},
+    "stage3": {},
+}
+
+
 def _launched(counts, expect, what):
     """Fail unless every kernel of ``expect`` launched exactly as often as
     ``expect`` says."""
@@ -1230,12 +1270,13 @@ def phase_selfheal(report, dev):
         adam_info = {**_supervision(adam.report), "actions": actions,
                      "launches": c_adam}
         shutil.rmtree(tmp / "adam")
+        chaos_timings = chaos.report.measured_timings()
         del clean, chaos, adam
 
         # (b) worker processes on the card under the job master, together
         log("phase 13 selfheal: job master, workers " +
             ", ".join(f"{n} ({c or 'no fault'})" for n, c in PROC_CELLS))
-        proc_info = _proc_cells(tmp, dev)
+        proc_info, proc_timings = _proc_cells(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = {
@@ -1256,7 +1297,7 @@ def phase_selfheal(report, dev):
         f"re-exec {proc_info['reexec_latencies_s']} s, restore "
         f"{proc_info['restore_latencies_s']} s")
     counts = {k: c_clean[k] + c_chaos[k] + c_adam[k] for k in c_clean}
-    return line, counts
+    return line, counts, (chaos_timings, proc_timings)
 
 
 def _final_launches(spec, incarnation):
@@ -1323,7 +1364,161 @@ def _proc_cells(tmp, dev):
             "reexec_latencies_s": latencies,
             "restore_latencies_s": report.restore_latencies_s,
             "wall_s": report.wall_seconds,
-            "final_incarnation_launches": launches}
+            "final_incarnation_launches": launches}, \
+        report.measured_timings()
+
+
+def _load_lifecycle_example():
+    """``examples/elastic_dlrm_train_torch.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / "elastic_dlrm_train_torch.py"
+    spec = importlib.util.spec_from_file_location("elastic_dlrm_train_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_lifecycle(report):
+    """Phase 14 (a): the lifecycle example at its full config on the card,
+    counts set to 0 just before it and read just after."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.kernels import cuda_lib
+
+    ex = _load_lifecycle_example()
+    cfg = ex.build_cfg()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lifecycle_", dir=ROOT / "build")
+    log(f"phase 14 lifecycle: examples/elastic_dlrm_train_torch.py --steps "
+        f"{LIFECYCLE_STEPS} --device cuda")
+    try:
+        t0 = time.perf_counter()
+        cuda_lib.reset_launches()
+        lc = ex.run_lifecycle(cfg, steps=LIFECYCLE_STEPS,
+                              device="cuda", ckpt_dir=tmp,
+                              log=lambda msg: log("  " + msg))
+        counts = dict(cuda_lib.LAUNCHES)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {"steps": len(lc.losses), "coverage": list(lc.coverage),
+           "stage1": dataclasses.asdict(lc.stage1_plan),
+           "stage2": {k: dataclasses.asdict(v)
+                      for k, v in lc.stage2_plans.items()},
+           "stage3": dict(lc.stage3_scaled)}
+    check(got == LIFECYCLE_WANT, f"lifecycle: {got}, the reference's "
+          f"control plane gives {LIFECYCLE_WANT}")
+    check(len(lc.brain.config_db) == 1,
+          f"config DB holds {len(lc.brain.config_db)} records, not 1")
+    check(all(math.isfinite(x) for x in lc.losses), "non-finite loss")
+    last10 = float(np.mean(lc.losses[-10:]))
+    check(last10 < lc.losses[0],
+          f"loss did not fall: {lc.losses[0]} -> {last10}")
+    check(0.5 < lc.auc <= 1.0, f"AUC {lc.auc}")
+    # K1 on both pools in every executed step and in the eval; the dense
+    # path's adagrad is plain, so nothing else launches
+    _launched(counts, {"fused_embedding_bag": 2 * len(lc.losses) + 2,
+                       "adagrad_row_update": 0, "adam_row_update": 0,
+                       "flash_attention": 0, "decode_attention": 0},
+              "lifecycle")
+    steps_s = sorted(lc.step_seconds)
+    line = {
+        "card": nvidia_smi_line(), "config": cfg.name,
+        "pooled_rows": cfg.total_embedding_rows,
+        "batch": cfg.batch_size, "steps_arg": LIFECYCLE_STEPS,
+        "steps": len(lc.losses), "coverage": list(lc.coverage),
+        "stage1": got["stage1"], "stage2": got["stage2"],
+        "stage3": got["stage3"], "first_loss": lc.losses[0],
+        "last10_loss": last10, "auc": lc.auc,
+        "launcher_steps_per_s": len(lc.losses) / lc.seconds,
+        "step_ms_median": steps_s[len(steps_s) // 2] * 1e3,
+        "step_ms_max": steps_s[-1] * 1e3,
+        "peak_mem_gib": lc.peak_mem_bytes / 2**30,
+        "ckpt_save_memory_s": lc.ckpt_save_s,
+        "ckpt_persist_s": lc.ckpt_persist_s,
+        "throughput_samples_per_s": lc.throughput, "wall_s": wall,
+        "launches": counts}
+    report["lifecycle"] = line
+    log(f"phase 14 lifecycle: {len(lc.losses)} steps, "
+        f"{line['launcher_steps_per_s']:.2f} steps/s, median step "
+        f"{line['step_ms_median']:.2f} ms, peak {line['peak_mem_gib']:.2f} "
+        f"GiB, checkpoint {lc.ckpt_save_s:.2f} s memory / "
+        f"{lc.ckpt_persist_s:.2f} s disk, AUC {lc.auc:.4f}, K1 "
+        f"{counts['fused_embedding_bag']} launches, {wall:.1f} s")
+    return line
+
+
+SIM_JOBS = 10                     # the first jobs of the port's trace copy
+SIM_KW = dict(total_cpu=2048.0, total_mem_gb=16384.0, horizon_s=6 * 3600.0,
+              seed=3, failure_seed=77, amplitude=0.15)
+SIM_SCHEDULERS = ("dlrover_rm", "static_user")
+
+
+def _sim_replay(task):
+    """One replay of the trace slice (in a worker process): its summary,
+    its event log and the host seconds it took."""
+    scheduler, timings_kw = task
+    from repro_torch.core.migration import MigrationTimings
+    from repro_torch.sim.cluster import TIMINGS
+    from repro_torch.sim.replay import replay, summarize
+    from repro_torch.sim.trace import (default_trace_path, load_trace,
+                                       trace_to_jobs)
+    jobs = trace_to_jobs(load_trace(default_trace_path()), seed=3)[:SIM_JOBS]
+    timings = (TIMINGS if timings_kw is None
+               else MigrationTimings(**timings_kw))
+    t0 = time.perf_counter()
+    res = replay(jobs, scheduler, timings=timings, **SIM_KW)
+    downtime = sum(r.downtime_s for r in res.records)
+    return summarize(res), res.event_log(), downtime, \
+        time.perf_counter() - t0
+
+
+def phase_sim(report, selfheal_timings):
+    """Phase 14 (b): the card's recovery costs (phase 13) in the cloud
+    simulator, each replay in its own process, all at once."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    sup, proc = selfheal_timings
+    card = {"flash_ckpt_load_s": sup.flash_ckpt_load_s,
+            "worker_reexec_s": proc.worker_reexec_s}
+    log(f"phase 14 sim: first {SIM_JOBS} trace jobs, 6 h, seed 3, failure "
+        f"seed 77, amplitude 0.15; default timings and the card's {card}")
+    tasks = [(name, kw) for name in SIM_SCHEDULERS
+             for kw in (None, card, card)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=len(tasks),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(_sim_replay, tasks))
+    wall = time.perf_counter() - t0
+    out = {"card": nvidia_smi_line(), "jobs": SIM_JOBS,
+           "settings": dict(SIM_KW),
+           "card_timings": card, "wall_s": wall, "schedulers": {}}
+    for i, name in enumerate(SIM_SCHEDULERS):
+        (s_def, log_def, dt_def, t_def), (s_card, log_card, dt_card, t_card), \
+            (s_again, log_again, _, t_again) = results[3 * i:3 * i + 3]
+        check(s_again == s_card and log_again == log_card,
+              f"sim {name}: a second run with the card's timings differs")
+        check(s_def["jobs"] == SIM_JOBS and s_card["jobs"] == SIM_JOBS,
+              f"sim {name}: {s_def['jobs']} jobs")
+        out["schedulers"][name] = {
+            "default_timings": s_def, "card_timings": s_card,
+            "event_log_lines": [log_def.count("\n") + 1,
+                                log_card.count("\n") + 1],
+            "event_log_changed_by_timings": log_def != log_card,
+            "downtime_s": [dt_def, dt_card],
+            "host_s": [t_def, t_card, t_again]}
+    report["sim"] = out
+    log(f"phase 14 sim: {wall:.1f} s wall; " + "; ".join(
+        f"{n} median JCT {v['default_timings']['median_jct_s']:.6g} -> "
+        f"{v['card_timings']['median_jct_s']:.6g} s (host "
+        f"{max(v['host_s']):.1f} s)" for n, v in out["schedulers"].items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1807,13 +2002,19 @@ def main() -> int:
         kernels += phase_lm_timing(report, dev, k4_counts, k5_counts,
                                    lm_errs)
         torch.cuda.empty_cache()
-        selfheal_line, selfheal_counts = phase_selfheal(report, dev)
+        selfheal_line, selfheal_counts, selfheal_timings = phase_selfheal(
+            report, dev)
+        torch.cuda.empty_cache()
+        lifecycle_line = phase_lifecycle(report)
+        sim_line = phase_sim(report, selfheal_timings)
         for entry in kernels:
             name = entry["name"].split()[1]
             if name in selfheal_counts and name in (
                     "fused_embedding_bag", "adagrad_row_update",
                     "adam_row_update"):
                 entry["launches_selfheal"] = selfheal_counts[name]
+            if name == "fused_embedding_bag":
+                entry["launches_lifecycle"] = lifecycle_line["launches"][name]
         lm_info = {"arch": LM_ARCH, "forward_vs_decode_rel": fwd[
             "rel_max_diff"], "card_vs_cpu_rel": card_cpu, "serve": served,
             "decode_profile": fwd["decode_profile"]}
@@ -1831,6 +2032,8 @@ def main() -> int:
     print(json.dumps({"lm": lm_info}))
     print(json.dumps({"replan": replan_line}))
     print(json.dumps({"selfheal": selfheal_line}))
+    print(json.dumps({"lifecycle": lifecycle_line}))
+    print(json.dumps({"sim": sim_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

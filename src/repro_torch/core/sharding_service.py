@@ -1,6 +1,8 @@
 """Dynamic data sharding (paper §5.1) + frequency-aware parameter placement.
 
 Port of ``repro/core/sharding_service.py`` (numpy with locks, as there).
+Its helpers from the planning layer are imported where they are used, as
+there, so the brain and the simulator import no torch.
 
 The job master splits the dataset into numerous small, variably-sized shards
 kept in a *shards queue*. Workers fetch shards on demand, send periodic
@@ -36,13 +38,6 @@ from dataclasses import dataclass, replace
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-from repro_torch.data.synthetic import RowFreqCounter
-from repro_torch.kernels.fused_embedding import table_offsets
-from repro_torch.sharding.policy import (balanced_vocab_ranges,
-                                         frequency_permutation,
-                                         pack_hot_ranges, placement_imbalance,
-                                         uniform_vocab_ranges)
 
 
 @dataclass(frozen=True)
@@ -297,6 +292,7 @@ class ParameterPlacementService:
     """
 
     def __init__(self, table_rows: Sequence[int]):
+        from repro_torch.data.synthetic import RowFreqCounter
         self._ctr = RowFreqCounter(table_rows)   # owns the pooled histogram
         self.table_rows = self._ctr.table_rows
         self.offsets = self._ctr.offsets
@@ -330,6 +326,7 @@ class ParameterPlacementService:
         The measured ``table_hot`` plan for the fused embedding engine
         (``pack_hot_ranges`` on the aggregated counts).
         """
+        from repro_torch.sharding.policy import pack_hot_ranges
         return pack_hot_ranges(self.counts, self.table_rows, budget)
 
     def ps_ranges(self, n_ps: int) -> List[Tuple[int, int]]:
@@ -338,10 +335,12 @@ class ParameterPlacementService:
         ``balanced_vocab_ranges`` on the aggregated counts — the hot-PS fix
         of §2.1/Fig 12, applied at placement time.
         """
+        from repro_torch.sharding.policy import balanced_vocab_ranges
         return balanced_vocab_ranges(self.counts, n_ps)
 
     def imbalance(self, n_ps: int) -> float:
         """max/mean PS load under the current balanced plan (1.0 = ideal)."""
+        from repro_torch.sharding.policy import placement_imbalance
         return placement_imbalance(self.counts, self.ps_ranges(n_ps))
 
 
@@ -418,6 +417,8 @@ class HotTableTracker:
                        striping (no plan applied yet).
           initial_hot: the cache plan already in effect (same provenance).
         """
+        from repro_torch.kernels.fused_embedding import table_offsets
+        from repro_torch.sharding.policy import uniform_vocab_ranges
         self.table_rows = tuple(int(r) for r in table_rows)
         self.offsets = np.asarray(table_offsets(self.table_rows), np.int64)
         self.total_rows = int(sum(self.table_rows))
@@ -480,6 +481,7 @@ class HotTableTracker:
 
     def imbalance(self) -> float:
         """max/mean PS load of the decayed counts under the APPLIED ranges."""
+        from repro_torch.sharding.policy import placement_imbalance
         with self._lock:
             return placement_imbalance(self.counts, self.current_ranges)
 
@@ -490,6 +492,10 @@ class HotTableTracker:
         Pure planning — nothing is applied; the tracker keeps suggesting the
         same decision until the caller commits it with ``mark_applied``.
         """
+        from repro_torch.sharding.policy import (
+            balanced_vocab_ranges, frequency_permutation, pack_hot_ranges,
+            placement_imbalance,
+        )
         with self._lock:
             if self._observes - self._last_replan < self.cooldown:
                 return None

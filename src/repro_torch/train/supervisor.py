@@ -346,8 +346,8 @@ class SupervisorReport:
         """Feed measured recovery latencies back into the cluster simulator.
 
         Maps the supervisor's observed flash-restore latency onto
-        ``MigrationTimings``, the recovery cost a cluster simulator's
-        failure model prices (the port's simulator is still to come).
+        ``MigrationTimings``, the recovery cost the failure model of
+        ``repro_torch.sim.cluster.CloudSim`` prices.
         """
         load = (float(np.mean(self.recovery_latencies_s))
                 if self.recovery_latencies_s else

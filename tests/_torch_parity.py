@@ -54,3 +54,25 @@ def flatten_jax_tree(tree, prefix=""):
         else:
             out[name] = np.asarray(v)
     return out
+
+
+def plain(x):
+    """Dataclasses, arrays and containers of either package → plain data
+    that compares with ``==`` across the packages (NaN as the string
+    ``"nan"``, so an undefined percentile compares equal to itself)."""
+    import dataclasses
+    import math
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: plain(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, np.ndarray):
+        return plain(x.tolist())
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, np.generic):
+        return plain(x.item())
+    if isinstance(x, float) and math.isnan(x):
+        return "nan"
+    return x

@@ -27,8 +27,17 @@ in bf16 with head dim 64 or 128 take the tensor-core route, the rest the
 SIMT route; K5 cases of 600 or more slots are split across the cache.
 The reduced LM's logits on the card match the CPU's within 1e-4, and the
 serving engine gives the CPU's greedy tokens.
+
+The lifecycle example (``examples/elastic_dlrm_train_torch.py``) at a small
+config runs 151 steps on the card: K1 launches twice per executed step
+plus twice for the eval, and the exactly-once coverage, the step count and
+every brain decision equal the CPU run's (which
+``tests/test_torch_brain.py`` holds to the reference).
 """
 import dataclasses
+import importlib.util
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -542,3 +551,41 @@ def test_reduced_lm_on_card_matches_cpu(dev):
         return {r: c.tokens for r, c in eng.run().items()}
 
     assert serve(gparams) == serve(params)
+
+
+def _lifecycle_example():
+    path = (Path(__file__).resolve().parent.parent / "examples"
+            / "elastic_dlrm_train_torch.py")
+    spec = importlib.util.spec_from_file_location("elastic_dlrm_train_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_lifecycle_on_card_launches_k1_and_decides_as_on_cpu(dev, tmp_path):
+    ex = _lifecycle_example()
+    cfg = tcfg.DLRMConfig(
+        name="wide_deep_small", kind="wide_deep",
+        table_rows=tuple(200 * (1 + i % 5) for i in range(26)),
+        embed_dim=16, mlp_dims=(32, 16), batch_size=32)
+    cuda_lib.reset_launches()
+    card = ex.run_lifecycle(cfg, steps=151, device="cuda",
+                            ckpt_dir=str(tmp_path / "card"), log=lambda s: None)
+    launches = dict(cuda_lib.LAUNCHES)
+    cpu = ex.run_lifecycle(cfg, steps=151, device="cpu",
+                           ckpt_dir=str(tmp_path / "cpu"), log=lambda s: None)
+    assert launches["fused_embedding_bag"] == 2 * len(card.losses) + 2
+    assert card.coverage == cpu.coverage and card.coverage[0] is True
+    assert card.coverage[2] == 0
+    assert len(card.losses) == len(cpu.losses) >= 151
+    for got, want in ((card.stage1_plan, cpu.stage1_plan),
+                      (card.master.resources, cpu.master.resources)):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert {k: dataclasses.asdict(v) for k, v in card.stage2_plans.items()} \
+        == {k: dataclasses.asdict(v) for k, v in cpu.stage2_plans.items()}
+    assert card.stage3_scaled == cpu.stage3_scaled
+    assert len(card.brain.config_db) == 1
+    assert np.all(np.isfinite(card.losses)) and 0.5 < card.auc <= 1.0
+    assert card.peak_mem_bytes > 0

@@ -1,9 +1,13 @@
-"""Port parity: seamless migration (``repro_torch.core.migration``).
+"""Port parity: seamless migration and OOM prediction
+(``repro_torch.core.migration``, ``repro_torch.core.oom``).
 
-The ``MigrationTimings`` / ``MigrationPlan`` / ``MigrationSession`` half of
-``tests/test_oom_migration.py`` against the port, and the same numbers as
-the reference (exact: both are the same float arithmetic) over a grid of
-timings and plans.
+Both halves of ``tests/test_oom_migration.py`` against the port: the
+``OOMPredictor`` (linear growth, categories per sample, no false positive
+on a noisy plateau) and ``MigrationTimings`` / ``MigrationPlan`` /
+``MigrationSession``, with the same numbers as the reference (exact: both
+are the same float arithmetic) over a grid of timings and plans. The OOM
+predictions are held to the reference exactly in
+``tests/test_torch_perf_model.py``.
 """
 import pytest
 
@@ -11,6 +15,37 @@ from repro.core import migration as jmig
 from repro_torch.core.migration import (MigrationPlan, MigrationSession,
                                         MigrationTimings, Phase)
 from repro_torch.core import migration as tmig
+from repro_torch.core.oom import OOMPredictor
+
+
+def test_oom_linear_growth_prediction():
+    pred = OOMPredictor(dtype_bytes=4, emb_dim=16)
+    for i in range(10):
+        pred.observe(samples_consumed=i * 1000, mem_bytes=1e9 + i * 1e7)
+    # slope = 1e7 bytes / 1000 samples = 1e4 bytes/sample
+    assert pred.growth_rate() == pytest.approx(1e4, rel=1e-3)
+    assert pred.predict(at_samples=20_000) == pytest.approx(1e9 + 2e8,
+                                                            rel=1e-3)
+    hit, peak = pred.will_oom(capacity_bytes=1.05e9,
+                              samples_to_completion=50_000)
+    assert hit and peak > 1.05e9
+    ok, _ = pred.will_oom(capacity_bytes=1e12, samples_to_completion=50_000)
+    assert not ok
+
+
+def test_oom_categories_per_sample():
+    pred = OOMPredictor(dtype_bytes=4, emb_dim=16)
+    pred.observe(0, 0.0)
+    pred.observe(1000, 64_000.0)       # 64 bytes/sample = 1 new category
+    assert pred.categories_per_sample() == pytest.approx(1.0, rel=1e-3)
+
+
+def test_oom_noisy_plateau_no_false_positive():
+    pred = OOMPredictor()
+    for i in range(20):
+        pred.observe(i * 1000, 1e9 + (i % 2))    # flat
+    hit, _ = pred.will_oom(2e9, 1e9)
+    assert not hit
 
 
 def test_seamless_vs_stop_restart_downtime():

@@ -1,10 +1,11 @@
 """Guards of the PyTorch/CUDA port (``src/repro_torch``).
 
-* nothing in the port, nor ``chip_smoke.py``, imports JAX or ``repro``;
+* nothing in the port, nor ``chip_smoke.py`` or the port's lifecycle
+  example, imports JAX or ``repro``;
 * the port imports with JAX unavailable; the job master and the worker's
   entry module import with torch unavailable too (the master stays out of
   the accelerator stack's failure domain; a worker beats "boot" before it
-  imports torch);
+  imports torch), and so do the brain and the simulator (host code);
 * entry points raise without CUDA unless asked for the CPU, and the kernel
   wrappers take no tensor that is not on a CUDA device;
 * the kernel library refuses to build without ``nvcc`` instead of falling
@@ -39,7 +40,8 @@ PORT_MODULES = sorted(
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "elastic_dlrm_train_torch.py"]
 
 
 def _imported_roots(path: Path):
@@ -97,6 +99,27 @@ def test_job_master_and_worker_entry_import_without_torch():
                           text=True, env=env, cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "stdlib only" in proc.stdout
+
+
+def test_control_plane_and_simulator_import_without_torch():
+    """The resource manager is host code: the brain, the auto-scaler and
+    the simulator import (and replay) with torch unavailable."""
+    code = ("import sys\n"
+            "for name in ('torch', 'jax', 'repro'):\n"
+            "    sys.modules[name] = None\n"
+            "import repro_torch.core.brain, repro_torch.core.plugin\n"
+            "from repro_torch.sim import replay, trace\n"
+            "jobs = trace.trace_to_jobs(trace.load_trace(\n"
+            "    trace.default_trace_path()), seed=3)[:4]\n"
+            "res = replay.replay(jobs, 'static_user', total_cpu=2048.0,\n"
+            "                    total_mem_gb=16384.0, horizon_s=3600.0,\n"
+            "                    seed=3, failure_seed=77)\n"
+            "print('host only', len(res.records))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "host only 4" in proc.stdout
 
 
 def _no_cuda(monkeypatch):

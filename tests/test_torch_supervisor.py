@@ -15,9 +15,9 @@ checkpoint schema), run the same chaos plan, and must give the same
 sequence of event kinds, steps and actions (exact), with losses within
 LOSS_ATOL (the two packages' f32 forwards differ by a few ULP).
 
-``test_supervisor_chaos.py::test_report_feeds_sim_timings`` has no
-counterpart yet: it needs the cluster simulator, which the port has not
-ported (ROADMAP item 13).
+``test_supervisor_chaos.py::test_report_feeds_sim_timings`` has its
+counterpart here: the report's measured timings feed the port's
+``repro_torch.sim.cluster.CloudSim``.
 """
 import dataclasses
 import functools
@@ -319,6 +319,17 @@ def test_event_log_is_structured_jsonl(tmp_path):
     assert {e["kind"] for e in body} >= {"fault_detected", "recovered"}
     assert all({"t", "kind", "step", "detail"} <= set(e) for e in body)
     assert rep.measured_timings().flash_ckpt_load_s > 0
+
+
+def test_report_feeds_sim_timings():
+    from repro_torch.core.migration import MigrationTimings
+    from repro_torch.sim.cluster import CloudSim
+    _, _, rep = _supervised("ps_loss@6")
+    timings = rep.measured_timings()
+    assert isinstance(timings, MigrationTimings)
+    assert timings.flash_ckpt_load_s > 0
+    sim = CloudSim("dlrover_rm", timings=timings, failure_seed=7)
+    assert sim.timings is timings and sim.failure_seed == 7
 
 
 @pytest.mark.parametrize("kill_at,padded,n_ps2", [
