@@ -10,8 +10,9 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
 1. build: compile K1-K5 from ``src/repro_torch/csrc`` into ``build/``;
    print the card's name and power limit (``nvidia-smi``) and the
    ``-Xptxas -v`` lines (registers, shared memory, spills) of the
-   redesigned kernels; K1-K3's main-path kernels and K4's tensor-core
-   kernel must not spill.
+   redesigned kernels; K1-K3's main-path kernels, K4's tensor-core and
+   SIMT kernels and K5's chunked instances (head dim 256, or more than 8
+   q-heads per kv-head) must not spill.
 2. K1 against its plain version on the card at the full Wide&Deep shapes
    (B=512, T=26, H=4, R=3,294,238, D=16 and the wide D=1), over
    sum/mean/max x weighted/unweighted x cache off/64/26*512 rows x flat/
@@ -134,10 +135,47 @@ The resource manager, run after phase 13:
     worker re-exec, each replay in its own process; a second run with the
     card's timings gives the same summary and event log.
 
-Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle`` and
-``sim`` JSON lines, the ``kernels`` JSON line (K1-K5; K1-K3 with their
-phase-13 launches under ``launches_selfheal``, K1 with phase 14's under
-``launches_lifecycle``), and last ``{"ok": true, "device": {...}}``. Full
+The rest of the LM zoo, run last (seeded random bf16 weights, batch 1,
+f32 caches):
+
+15. (a) K4 and K5 at the zoo's new shapes against their plain versions
+    within ATTN_TOL: K5 at recurrentgemma's local layers (1 kv-head, 10
+    q-heads, D=256, window 2048; bf16 q over an f32 and a bf16 cache, 128
+    and 2048 slots (split), a wrapped ring, empty splits); K4's SIMT route
+    at D=256, 10/1 heads, f32 and bf16, causal and window 2048; its
+    tensor-core route at Whisper's encoder (S=1500, 16/16 heads, D=64,
+    non-causal) and cross-attention (Sq=1 and Sq=16 against 1,500 keys),
+    and the SIMT route at the same shapes in f32. (b) granite-moe-1b-a400m,
+    mamba2-2.7b and recurrentgemma-2b at full width and depth:
+    ``forward_lm`` against ``prefill_into_cache`` on a 32-token prompt, rel
+    < FWD_DEC_REL_BF16 (MoE at ``capacity_factor = n_experts``); for the
+    archs of ZOO_CHECK_F32 (mamba2 and the MoE archs, where bf16 rounding
+    alone moves the logits past that bound) the same weights in f32 within
+    FWD_DEC_REL_F32, the bf16 numbers reported; K4 once per attention
+    layer over the forward and K5 once per attention layer and token over
+    the decode, exactly, and nothing else; 8 timed decode
+    steps; then ``repro_torch.launch.serve --arch <id> --full --requests 4
+    --slots 2 --max-new 8``, every request finished, K5 exactly attention
+    layers x (prompt + decoded tokens). whisper-medium (24 + 24 layers)
+    through its ``ModelAPI``: the teacher-forced pass on 1,500 random
+    frames and 16 tokens against ``fill_cross_cache`` and 16 decode steps
+    within FWD_DEC_REL_BF16, K4 and K5 counted exactly. (c) minitron-8b at
+    full depth, gemma3-27b cut to 6 layers (one 5-local + 1-global group),
+    command-r-35b, chameleon-34b and mixtral-8x22b cut to 2 layers, as in
+    (b) without serving. (d) card against CPU, f32, full width: granite,
+    mamba2 and whisper cut to 2 layers, recurrentgemma to 3 (one whole
+    recurrent, recurrent, local group); forward and 8 decode steps within
+    CARD_CPU_REL. (e) K5 at recurrentgemma's L=128 and L=2048, K4 at
+    Whisper's encoder and cross-attention shapes and at D=256, S=2048,
+    timed as in phase 11 with the plain version, SDPA and the bound. (f)
+    per model: ms per decode step, tok/s served, peak memory.
+
+Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle``,
+``sim`` and ``lm_zoo`` JSON lines, the ``kernels`` JSON line (K1-K5; K1-K3
+with their phase-13 launches under ``launches_selfheal``, K1 with phase
+14's under ``launches_lifecycle``, K4 and K5 with phase 15's per model
+under ``launches_lm_zoo`` and their phase-15 timings under
+``at_lm_zoo_shapes``), and last ``{"ok": true, "device": {...}}``. Full
 details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -269,7 +307,14 @@ PTXAS_REPORTED = {
     "bag_wide_kernelILi0E": "K1 D=1 wide (sum)",
     "flash_tc_kernelILi128": "K4 tensor-core D=128",
     "flash_tc_kernelILi64": "K4 tensor-core D=64",
-    "decode_split_kernelI13__nv_bfloat16fE": "K5 split (bf16 q, f32 cache)",
+    "flash_fwd_kernelI\\w*Li8E": "K4 SIMT D<=128 (f32, bf16)",
+    "flash_fwd_kernelI\\w*Li16E": "K4 SIMT D<=256 (f32, bf16)",
+    "decode_split_kernelILi4ELi8ELi8ELb0E13__nv_bfloat16fE":
+        "K5 split D<=128 (bf16 q, f32 cache)",
+    "decode_split_kernelILi4ELi8ELi8ELb1E":
+        "K5 split D<=128, G>8 (every q and cache dtype)",
+    "decode_split_kernelILi8ELi4ELi4ELb1E":
+        "K5 split D<=256 (every q and cache dtype)",
     "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
     **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
        for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
@@ -305,10 +350,14 @@ def phase_build(report):
     log(f"phase 1 build: {lib.name} in {report['build']['seconds']:.1f} s")
     missing = set(PTXAS_REPORTED.values()) - set(ptxas)
     check(not missing, f"no ptxas lines for {missing}")
+    import re
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
-        if name.startswith(("K1", "K2", "K3", "K4")):
-            check("0 bytes spill stores, 0 bytes spill loads" in line,
+        if name.startswith(("K1", "K2", "K3", "K4", "K5 split D<=256",
+                            "K5 split D<=128, G>8")):
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
+                                r"spill loads", line)
+            check(spills and all(a == b == "0" for a, b in spills),
                   f"{name} spills: {line}")
 
 
@@ -1959,6 +2008,505 @@ def phase_lm_timing(report, dev, k4_counts, k5_counts, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the LM zoo (MoE, SSM, hybrid, enc-dec, the other
+# dense archs), K4/K5 at head dim 256, ten q-heads per kv-head and
+# Whisper's shapes
+# ---------------------------------------------------------------------------
+ZOO_SEED = 0
+ZOO_PROMPT = 32                   # forward vs decode prompt
+ZOO_DECODE_STEPS = 8              # timed decode steps after the prompt
+ZOO_FULL_DEPTH = ("granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b")
+# Where bf16 rounding alone moves the logits past FWD_DEC_REL_BF16, the
+# forward-vs-decode check runs on the same weights in f32, where the two
+# algorithms must agree, against FWD_DEC_REL_F32, and the bf16 numbers
+# (with the bf16 forward's distance from the f32 forward) are reported
+# beside it. mamba2: its 64 SSM layers with seeded random weights amplify
+# bf16 rounding (its bf16 forward is 0.63 rel from its f32 forward; the
+# f32 forward and decode agree to 1.5e-4; H100 80GB HBM3, 700 W). The MoE
+# archs: a top-k router is discontinuous, and one bf16 rounding of a
+# router input between the forward and the decode can swap an expert
+# (mixtral, 2 layers: rel 0.27 in bf16)
+ZOO_CHECK_F32 = ("granite-moe-1b-a400m", "mamba2-2.7b", "mixtral-8x22b")
+FWD_DEC_REL_F32 = 1e-3        # f32 forward vs decode, full width and depth
+ZOO_SERVE = ["--full", "--requests", "4", "--slots", "2", "--max-new", "8"]
+ZOO_ENCDEC = "whisper-medium"
+ZOO_ENCDEC_TOKENS = 16
+# the other five at full width, depth cut where the card's memory or the
+# run's time asks for it: gemma3 to one 5-local + 1-global group, the
+# 35B/34B dense models and mixtral (4.8 GB of experts per layer; 281 GB in
+# all) to 2 layers
+ZOO_WIDTH_ONLY = {"minitron-8b": None, "gemma3-27b": 6, "command-r-35b": 2,
+                  "chameleon-34b": 2, "mixtral-8x22b": 2}
+# card against CPU, f32, one weight set per family, full width; the hybrid
+# keeps one whole (recurrent, recurrent, local) group
+ZOO_CARD_CPU = {"granite-moe-1b-a400m": 2, "mamba2-2.7b": 2,
+                "recurrentgemma-2b": 3, "whisper-medium": 2}
+
+
+def _zoo_cfg(arch, **overrides):
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch(arch), **overrides)
+
+
+def _n_attn(cfg):
+    return sum(k in ("global", "local") for k in cfg.layer_kinds)
+
+
+def phase_zoo_kernels(report, dev):
+    """(a) K4 and K5 at the zoo's new shapes against their plain versions."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(15)
+    k4 = [  # dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, want route
+        ("float32", 1, 2048, 2048, 10, 1, 256, True, None, "simt"),
+        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, None, "simt"),
+        ("float32", 1, 2048, 2048, 10, 1, 256, True, 2048, "simt"),
+        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, 2048, "simt"),
+        ("bfloat16", 1, 1500, 1500, 16, 16, 64, False, None, "tensor-core"),
+        ("float32", 1, 1500, 1500, 16, 16, 64, False, None, "simt"),
+        ("bfloat16", 1, 1, 1500, 16, 16, 64, False, None, "tensor-core"),
+        ("float32", 1, 1, 1500, 16, 16, 64, False, None, "simt"),
+        ("bfloat16", 1, 16, 1500, 16, 16, 64, False, None, "tensor-core"),
+    ]
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    rows = []
+    for dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, route in k4:
+        q = _randn(gen, (B, Sq, Hq, D), dtype, dev)
+        k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+        got_route = "tensor-core" if fa.tc_route(q, k) else "simt"
+        check(got_route == route, f"K4 {dtype} D={D} took the {got_route} "
+              f"route, not {route}")
+        kw = dict(causal=causal, window=window)
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tag = (f"K4 {route} {dtype} B={B} Sq={Sq} Skv={Skv} heads={Hq}/{Hkv}"
+               f" D={D} {kw}")
+        err = _attn_err(tag, got, want, ATTN_TOL[dtype])
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        rows.append({"kernel": "K4", "route": route, "case": tag,
+                     "max_abs_err": err})
+    Hq, Hkv, D = 10, 1, 256
+    k5 = [  # q dtype, cache dtype, L, layout, window
+        ("bfloat16", "float32", 128, "full", 2048),    # the engine's cache
+        ("bfloat16", "bfloat16", 128, "full", 2048),
+        ("bfloat16", "float32", 2048, "full", 2048),   # split
+        ("bfloat16", "bfloat16", 2048, "full", 2048),
+        ("float32", "float32", 2048, "ring", 2048),    # wrapped ring
+        ("bfloat16", "float32", 2048, "padded", 2048),  # empty splits
+    ]
+    for q_dt, c_dt, L, layout, window in k5:
+        B = 2 if layout == "ring" else 1
+        q = _randn(gen, (B, 1, Hq, D), q_dt, dev)
+        kc = _randn(gen, (B, L, Hkv, D), c_dt, dev)
+        vc = _randn(gen, (B, L, Hkv, D), c_dt, dev)
+        cp, pos = _cache_pos(layout, B, L, dev)
+        got = da.decode_attention_cuda(q, kc, vc, cp, pos, window=window)
+        want = da.decode_attention_plain(q, kc, vc, cp, pos, window=window)
+        torch.cuda.synchronize()
+        n_split = da.split_plan(B, Hkv, L)
+        tag = (f"K5 q={q_dt} cache={c_dt} B={B} L={L} heads={Hq}/{Hkv} D={D}"
+               f" {layout} window={window} n_split={n_split}")
+        err = _attn_err(tag, got, want, ATTN_TOL[q_dt])
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        rows.append({"kernel": "K5", "case": tag, "n_split": n_split,
+                     "max_abs_err": err})
+    check(da.split_plan(1, Hkv, 2048) > 1, "K5 does not split L=2048")
+    report["zoo_kernels"] = {"cases": rows, "tolerance": ATTN_TOL}
+    log(f"phase 15 (a) K4/K5: {len(k4)} K4 and {len(k5)} K5 cases at the "
+        f"zoo's shapes agree with the plain versions (max abs err K4 "
+        f"{errs['flash_attention']:.3g}, K5 {errs['decode_attention']:.3g})")
+    return errs
+
+
+def _decode_timed(params, cfg, cache, dev, n_steps):
+    """ms per decode step (batch 1) over ``n_steps`` greedy steps."""
+    import torch
+    from repro_torch.models import transformer as tf
+    tok = torch.full((1, 1), 7, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        logits, cache = tf.decode_step_lm(params, cache, tok, cfg)
+        tok = torch.argmax(logits[0, -1]).to(torch.int32).reshape(1, 1)
+        int(tok)                                       # the engine's sync
+    return (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def _zoo_decoder(arch, dev, num_layers=None, serve_it=False):
+    """Full-width bf16 ``forward_lm`` against ``prefill_into_cache`` on a
+    32-token prompt, K4 and K5 counted exactly; then timed decode steps;
+    then, for a served arch, the serve launcher with K5 counted."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import transformer as tf
+    overrides = {} if num_layers is None else {"num_layers": num_layers}
+    cfg = _zoo_cfg(arch, **overrides)
+    if cfg.n_experts:      # the forward drops no pair, as decoding cannot
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    n_attn = _n_attn(cfg)
+    t0 = time.perf_counter()
+    params = tf.init_lm(cfg, torch.Generator(device=dev).manual_seed(
+        ZOO_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    toks = torch.from_numpy(np.random.default_rng(ZOO_SEED).integers(
+        0, cfg.vocab_size, (1, ZOO_PROMPT)).astype(np.int32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()          # forward and decode only
+    cuda_lib.reset_launches()
+    full, _ = tf.forward_lm(params, toks, cfg)
+    torch.cuda.synchronize()
+    fwd_counts = dict(cuda_lib.LAUNCHES)
+    max_len = ZOO_PROMPT + ZOO_DECODE_STEPS
+    cache = tf.init_cache_lm(cfg, 1, max_len, torch.float32, dev)
+    cuda_lib.reset_launches()
+    cache, seq = tf.prefill_into_cache(params, cache, toks, cfg)
+    torch.cuda.synchronize()
+    dec_counts = dict(cuda_lib.LAUNCHES)
+    check(fwd_counts["flash_attention"] == n_attn and sum(
+        fwd_counts.values()) == n_attn, f"{arch}: forward launched "
+        f"{fwd_counts}, want K4 x {n_attn} and nothing else")
+    check(dec_counts["decode_attention"] == n_attn * ZOO_PROMPT and sum(
+        dec_counts.values()) == n_attn * ZOO_PROMPT, f"{arch}: decode "
+        f"launched {dec_counts}, want K5 x {n_attn * ZOO_PROMPT}")
+    check(bool(torch.isfinite(full).all() and torch.isfinite(seq).all()),
+          f"{arch}: non-finite logits")
+    check(full.shape == seq.shape, f"{arch}: {full.shape} vs {seq.shape}")
+    rel = _rel(full, seq)
+    agree = float((full.argmax(-1) == seq.argmax(-1)).float().mean())
+    ms = _decode_timed(params, cfg, cache, dev, ZOO_DECODE_STEPS)
+    info = {"layers": cfg.num_layers, "attention_layers": n_attn,
+            "params": n_params, "init_s": init_s, "prompt": ZOO_PROMPT,
+            "rel_max_diff": rel, "argmax_agreement": agree,
+            "forward_launches": fwd_counts, "decode_launches": dec_counts,
+            "ms_per_decode_step": ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del cache, seq
+    if arch in ZOO_CHECK_F32:
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        p32 = tf._map_leaves(lambda t: t.float(), params)
+        del params
+        full32, _ = tf.forward_lm(p32, toks, cfg32)
+        _, seq32 = tf.prefill_into_cache(
+            p32, tf.init_cache_lm(cfg32, 1, ZOO_PROMPT, torch.float32, dev),
+            toks, cfg32)
+        info["f32"] = {"rel_max_diff": _rel(full32, seq32),
+                       "bound": FWD_DEC_REL_F32,
+                       "bf16_forward_vs_f32_forward_rel": _rel(full32, full)}
+        check(info["f32"]["rel_max_diff"] < FWD_DEC_REL_F32, f"{arch}: f32 "
+              f"forward vs decode rel {info['f32']['rel_max_diff']:.3g} >= "
+              f"{FWD_DEC_REL_F32}")
+        del p32, full32, seq32
+    else:
+        check(rel < FWD_DEC_REL_BF16, f"{arch}: forward vs decode rel "
+              f"{rel:.3g} >= {FWD_DEC_REL_BF16}")
+        del params
+    del full
+    torch.cuda.empty_cache()
+    if serve_it:
+        from repro_torch.launch import serve
+        argv = ["--arch", arch] + ZOO_SERVE
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        run = serve.main(argv)
+        counts = dict(cuda_lib.LAUNCHES)
+        n_req, max_new = 4, 8
+        want = n_attn * (run.prompt_tokens + n_req * max_new)
+        check(len(run.outputs) == n_req and all(
+            len(c.tokens) == max_new for c in run.outputs.values()),
+            f"{arch}: serving did not finish {n_req} requests of {max_new} "
+            f"tokens: {run.outputs}")
+        check(counts["decode_attention"] == want and sum(counts.values())
+              == want, f"{arch}: serving launched {counts}, want K5 x {want}"
+              f" ({n_attn} attention layers x ({run.prompt_tokens} prompt +"
+              f" {n_req * max_new} decoded tokens))")
+        info["serve"] = {
+            "argv": argv, "tokens": run.tokens, "seconds": run.seconds,
+            "tokens_per_s": run.tokens / run.seconds,
+            "prompt_tokens": run.prompt_tokens, "engine_steps": run.steps,
+            "launches": counts,
+            "peak_gib_with_init": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.cuda.empty_cache()
+    f32_note = "" if "f32" not in info else (
+        f" (f32: forward vs decode rel {info['f32']['rel_max_diff']:.3g}, "
+        f"bound {FWD_DEC_REL_F32}; bf16 vs f32 forward rel "
+        f"{info['f32']['bf16_forward_vs_f32_forward_rel']:.3g})")
+    log(f"phase 15 {arch} ({cfg.num_layers} layers, {n_params / 1e9:.2f} B "
+        f"params, bf16): forward vs decode rel {rel:.3g}{f32_note}, argmax "
+        f"agreement {agree:.3f}; K4 {fwd_counts['flash_attention']}, K5 "
+        f"{dec_counts['decode_attention']}; {ms:.2f} ms per decode step; "
+        f"peak {info['peak_gib']:.2f} GiB" + (
+            f"; served {info['serve']['tokens']} tokens at "
+            f"{info['serve']['tokens_per_s']:.1f} tok/s"
+            if serve_it else ""))
+    return info
+
+
+def _rel(want, got):
+    return float((want.float() - got.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _zoo_encdec(dev):
+    """Whisper at full width and depth through its ModelAPI: the
+    teacher-forced pass on 1,500 frames and 16 tokens against
+    ``fill_cross_cache`` and 16 ``decode_step`` calls, K4 and K5 exact."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_model
+    cfg = _zoo_cfg(ZOO_ENCDEC)
+    api = build_model(cfg)
+    params = api.init(torch.Generator(device=dev).manual_seed(ZOO_SEED))
+    n_params = sum(t.numel() for t in _leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(ZOO_SEED + 1)
+    frames = _randn(gen, (1, cfg.n_frames, cfg.d_model), "bfloat16", dev)
+    S = ZOO_ENCDEC_TOKENS
+    toks = torch.from_numpy(np.random.default_rng(ZOO_SEED).integers(
+        0, cfg.vocab_size, (1, S)).astype(np.int32)).to(dev)
+    L_enc, L_dec = cfg.encoder_layers, cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()          # forward and decode only
+    cuda_lib.reset_launches()
+    full = api.prefill(params, {"frames": frames, "tokens": toks})
+    torch.cuda.synchronize()
+    fwd_counts = dict(cuda_lib.LAUNCHES)
+    check(fwd_counts["flash_attention"] == L_enc + 2 * L_dec and sum(
+        fwd_counts.values()) == L_enc + 2 * L_dec, f"whisper forward "
+        f"launched {fwd_counts}, want K4 x {L_enc + 2 * L_dec}")
+    cache = api.init_cache(1, S, torch.float32, dev)
+    cuda_lib.reset_launches()
+    encdec.fill_cross_cache(params, cache, frames, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = []
+    for t in range(S):
+        logits, cache = api.decode_step(params, cache, toks[:, t:t + 1])
+        seq.append(logits[:, 0])
+        int(torch.argmax(logits[0, -1]))               # the engine's sync
+    ms = (time.perf_counter() - t0) / S * 1e3
+    dec_counts = dict(cuda_lib.LAUNCHES)
+    want = {"flash_attention": L_enc + S * L_dec,
+            "decode_attention": S * L_dec}
+    check({k: v for k, v in dec_counts.items() if v} == want,
+          f"whisper decode launched {dec_counts}, want {want}")
+    seq = torch.stack(seq, 1)
+    check(bool(torch.isfinite(full).all() and torch.isfinite(seq).all()),
+          "whisper: non-finite logits")
+    rel = float((full.float() - seq.float()).abs().max()
+                / full.float().abs().max())
+    agree = float((full.argmax(-1) == seq.argmax(-1)).float().mean())
+    check(rel < FWD_DEC_REL_BF16, f"whisper: teacher-forced vs decoded rel "
+          f"{rel:.3g} >= {FWD_DEC_REL_BF16}")
+    info = {"encoder_layers": L_enc, "decoder_layers": L_dec,
+            "params": n_params, "frames": cfg.n_frames, "tokens": S,
+            "rel_max_diff": rel, "argmax_agreement": agree,
+            "forward_launches": fwd_counts, "decode_launches": dec_counts,
+            "ms_per_decode_step": ms, "tokens_per_s": 1e3 / ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del params, cache, full, seq, frames
+    torch.cuda.empty_cache()
+    log(f"phase 15 {ZOO_ENCDEC} ({L_enc}+{L_dec} layers, "
+        f"{n_params / 1e9:.2f} B params, bf16, {cfg.n_frames} frames, {S} "
+        f"tokens): teacher-forced vs decoded rel {rel:.3g}, argmax agreement"
+        f" {agree:.3f}; K4 {fwd_counts['flash_attention']} + "
+        f"{dec_counts['flash_attention']}, K5 "
+        f"{dec_counts['decode_attention']}; {ms:.2f} ms per decode step; "
+        f"peak {info['peak_gib']:.2f} GiB")
+    return info
+
+
+def _zoo_card_cpu(arch, layers, dev):
+    """(d) one f32 weight set at full width cut to ``layers``: forward and
+    8 decode steps on the card against the CPU's plain path."""
+    import numpy as np
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build_model
+    cfg = _zoo_cfg(arch, num_layers=layers, param_dtype="float32",
+                   compute_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    api = build_model(cfg)
+    cpu_params = api.init(torch.Generator().manual_seed(ZOO_SEED))
+    params = tf.params_to(cpu_params, dev)
+    rng = np.random.default_rng(ZOO_SEED + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 8))
+                            .astype(np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    rels = {}
+    got = api.prefill(params, {k: v.to(dev) for k, v in batch.items()})
+    want = api.prefill(cpu_params, batch)
+    rels["forward"] = float((got.cpu() - want).abs().max()
+                            / want.abs().max())
+    seqs = []
+    for p, device in ((params, dev), (cpu_params, "cpu")):
+        cache = api.init_cache(1, 8, torch.float32, device)
+        if cfg.family == "encdec":
+            encdec.fill_cross_cache(p, cache, batch["frames"].to(device),
+                                    cfg)
+        out = []
+        for t in range(8):
+            logits, cache = api.decode_step(p, cache,
+                                            toks[:, t:t + 1].to(device))
+            out.append(logits[:, 0].cpu())
+        seqs.append(torch.stack(out, 1))
+    rels["decode"] = float((seqs[0] - seqs[1]).abs().max()
+                           / seqs[1].abs().max())
+    for name, rel in rels.items():
+        check(math.isfinite(rel) and rel < CARD_CPU_REL, f"{arch} card vs "
+              f"CPU {name} rel {rel:.3g} >= {CARD_CPU_REL}")
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return {"layers": layers, "rel_max_diff": rels}
+
+
+def _zoo_timing(dev):
+    """(e) K5 at recurrentgemma's shapes, K4 at Whisper's and at head dim
+    256, timed as in phase 11, with the plain version, SDPA and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    k4_cases = [  # tag, B, Sq, Skv, Hq, Hkv, D, causal, dtype, peak
+        ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False, "bfloat16"),
+        ("whisper cross-attention, one decode step", 1, 1, 1500, 16, 16, 64,
+         False, "bfloat16"),
+        ("recurrentgemma local, SIMT D=256", 1, 2048, 2048, 10, 1, 256,
+         True, "bfloat16"),
+    ]
+    for tag, B, Sq, Skv, Hq, Hkv, D, causal, dtype in k4_cases:
+        q = _randn(gen, (B, Sq, Hq, D), dtype, dev)
+        k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+        route = "tensor-core" if fa.tc_route(q, k) else "simt"
+        kw = dict(causal=causal, window=2048 if D == 256 else None)
+        k_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), flush)
+        p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                       flush, iters=10)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+        _attn_err(f"SDPA yardstick vs K4 {tag}",
+                  lib_out.transpose(1, 2).contiguous(),
+                  fa.flash_attention_cuda(q, k, v, **kw), SDPA_TOL)
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush)
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        flops = 4 * D * Hq * B * pairs
+        n_bytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        rows.append({"kernel": "K4", "at": f"{tag}: B={B} Sq={Sq} Skv={Skv}"
+                     f" Hq={Hq} Hkv={Hkv} D={D} {dtype} causal={causal}",
+                     "route": route, "ms": k_ms, "plain_ms": p_ms,
+                     "sdpa_ms": l_ms, "flops": flops, "bytes": n_bytes,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, qt, kt, vt, lib_out
+    Hq, Hkv, D = 10, 1, 256
+    for L in (128, 2048):
+        q = _randn(gen, (1, 1, Hq, D), "bfloat16", dev)
+        kc = _randn(gen, (1, L, Hkv, D), "float32", dev)
+        vc = _randn(gen, (1, L, Hkv, D), "float32", dev)
+        cp, pos = _cache_pos("full", 1, L, dev)
+        kw = dict(window=2048)
+        k_ms = time_ms(lambda: da.decode_attention_cuda(q, kc, vc, cp, pos,
+                                                        **kw), flush)
+        p_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, cp, pos,
+                                                         **kw), flush,
+                       iters=10)
+        q32 = q.float().transpose(1, 2).contiguous()
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = ((cp >= 0) & (cp <= pos[:, None]))[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(q32, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+        _attn_err(f"SDPA yardstick vs K5 L={L}",
+                  lib_out.transpose(1, 2).to(torch.bfloat16).contiguous(),
+                  da.decode_attention_cuda(q, kc, vc, cp, pos, **kw),
+                  SDPA_TOL)
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q32, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        n_valid = int(((cp >= 0) & (cp <= pos[:, None])).sum())
+        n_bytes = 2 * n_valid * Hkv * D * 4 + L * 4 + 4 + 2 * Hq * D * 2
+        b_ms, b_by = bound_ms(n_bytes, 4 * n_valid * Hq * D)
+        rows.append({"kernel": "K5", "at": f"recurrentgemma local decode: "
+                     f"B=1 L={L} Hq={Hq} Hkv={Hkv} D={D} q bf16, cache f32, "
+                     f"window 2048, n_split={da.split_plan(1, Hkv, L)}",
+                     "ms": k_ms, "plain_ms": p_ms, "sdpa_ms": l_ms,
+                     "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by})
+        del q, kc, vc, kt, vt, q32, lib_out
+    for r in rows:
+        log(f"phase 15 (e) {r['kernel']} {r['at']}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f}, SDPA {r['sdpa_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows
+
+
+def _zoo_launches(zoo_line, kernel):
+    """A kernel's launches on each zoo model's path in phase 15 (forward,
+    decode and serving runs)."""
+    out = {}
+    for arch, info in zoo_line["models"].items():
+        n = info["forward_launches"][kernel] + \
+            info["decode_launches"][kernel]
+        if "serve" in info:
+            n += info["serve"]["launches"][kernel]
+        out[arch] = n
+    return out
+
+
+def phase_zoo(report, dev):
+    """Phase 15: the rest of the LM zoo at full width on the card."""
+    import torch
+    t0 = time.perf_counter()
+    errs = phase_zoo_kernels(report, dev)
+    models = {}
+    for arch in ZOO_FULL_DEPTH:
+        models[arch] = _zoo_decoder(arch, dev, serve_it=True)
+    models[ZOO_ENCDEC] = _zoo_encdec(dev)
+    for arch, layers in ZOO_WIDTH_ONLY.items():
+        models[arch] = _zoo_decoder(arch, dev, num_layers=layers)
+    card_cpu = {}
+    for arch, layers in ZOO_CARD_CPU.items():
+        card_cpu[arch] = _zoo_card_cpu(arch, layers, dev)
+        log(f"phase 15 (d) {arch} card vs CPU (full width, {layers} layers,"
+            f" f32): rel forward "
+            f"{card_cpu[arch]['rel_max_diff']['forward']:.3g}, decode "
+            f"{card_cpu[arch]['rel_max_diff']['decode']:.3g} (bound "
+            f"{CARD_CPU_REL})")
+    timing = _zoo_timing(dev)
+    torch.cuda.empty_cache()
+    line = {"models": models, "card_vs_cpu": card_cpu, "timing": timing,
+            "max_abs_err": errs, "seconds": time.perf_counter() - t0}
+    report["lm_zoo"] = line
+    log(f"phase 15 zoo: {time.perf_counter() - t0:.1f} s")
+    return line
+
+
 def main() -> int:
     try:
         import torch
@@ -2007,6 +2555,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         lifecycle_line = phase_lifecycle(report)
         sim_line = phase_sim(report, selfheal_timings)
+        torch.cuda.empty_cache()
+        zoo_line = phase_zoo(report, dev)
         for entry in kernels:
             name = entry["name"].split()[1]
             if name in selfheal_counts and name in (
@@ -2015,6 +2565,13 @@ def main() -> int:
                 entry["launches_selfheal"] = selfheal_counts[name]
             if name == "fused_embedding_bag":
                 entry["launches_lifecycle"] = lifecycle_line["launches"][name]
+            if name in ("flash_attention", "decode_attention"):
+                entry["launches_lm_zoo"] = _zoo_launches(zoo_line, name)
+                entry["max_abs_err_lm_zoo"] = zoo_line["max_abs_err"][name]
+                entry["at_lm_zoo_shapes"] = [
+                    {k: v for k, v in r.items() if k != "kernel"}
+                    for r in zoo_line["timing"]
+                    if r["kernel"] == entry["name"].split()[0]]
         lm_info = {"arch": LM_ARCH, "forward_vs_decode_rel": fwd[
             "rel_max_diff"], "card_vs_cpu_rel": card_cpu, "serve": served,
             "decode_profile": fwd["decode_profile"]}
@@ -2034,6 +2591,7 @@ def main() -> int:
     print(json.dumps({"selfheal": selfheal_line}))
     print(json.dumps({"lifecycle": lifecycle_line}))
     print(json.dumps({"sim": sim_line}))
+    print(json.dumps({"lm_zoo": zoo_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

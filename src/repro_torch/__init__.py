@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of ``repro``: DLRM training with live re-planning,
-flash checkpoints and elastic resume, and dense-LM serving.
+flash checkpoints, elastic resume, self-healing and the resource manager,
+and the LM zoo (every config of ``repro``: forward, loss, cached decoding
+and serving).
 
 The package mirrors ``repro``'s module layout (``configs``, ``core``,
 ``data``, ``sharding``, ``kernels``, ``models``, ``train``, ``serve``,

@@ -1,0 +1,24 @@
+"""mamba2-2.7b — attention-free SSM with SSD (state-space duality). [arXiv:2405.21060]
+
+Port of ``repro/configs/mamba2_2_7b.py``."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    num_layers=64,
+    d_model=2560,
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    head_dim=0,
+    layer_pattern=("ssm",),
+    ssm_state=128,
+    ssm_headdim=64,
+    ssm_expand=2,
+    ssm_ngroups=1,
+    ssm_conv_width=4,
+    ssm_chunk=256,
+    tie_embeddings=True,
+)

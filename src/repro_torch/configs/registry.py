@@ -1,15 +1,34 @@
 """Arch-id → config resolution for ``--arch <id>``: DLRMs and the LM zoo.
 
-``ARCHS`` holds the decoder LMs this package serves so far (the dense
-attention families; see ``models/registry.py``).
+Port of ``repro/configs/registry.py``: the ten LM archs, the three DLRMs,
+the input shapes and the (arch × shape) cells.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import llama3_2_3b
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import (
+    chameleon_34b, command_r_35b, gemma3_27b, granite_moe_1b, llama3_2_3b,
+    mamba2_2_7b, minitron_8b, mixtral_8x22b, recurrentgemma_2b,
+    whisper_medium,
+)
+from repro_torch.configs.base import (
+    SHAPES, ModelConfig, ShapeConfig, shape_applicable,
+)
 from repro_torch.configs.dlrm_models import DCN, WIDE_DEEP, XDEEPFM, DLRMConfig
+
+ARCHS: Dict[str, ModelConfig] = {
+    "llama3.2-3b": llama3_2_3b.CONFIG,
+    "minitron-8b": minitron_8b.CONFIG,
+    "gemma3-27b": gemma3_27b.CONFIG,
+    "command-r-35b": command_r_35b.CONFIG,
+    "chameleon-34b": chameleon_34b.CONFIG,
+    "mamba2-2.7b": mamba2_2_7b.CONFIG,
+    "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
+    "whisper-medium": whisper_medium.CONFIG,
+    "granite-moe-1b-a400m": granite_moe_1b.CONFIG,
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+}
 
 DLRMS: Dict[str, DLRMConfig] = {
     "wide_deep": WIDE_DEEP,
@@ -17,9 +36,17 @@ DLRMS: Dict[str, DLRMConfig] = {
     "dcn": DCN,
 }
 
-ARCHS: Dict[str, ModelConfig] = {
-    "llama3.2-3b": llama3_2_3b.CONFIG,
-}
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; choose from {sorted(SHAPES)}")
+    return SHAPES[name]
 
 
 def get_dlrm(name: str) -> DLRMConfig:
@@ -28,7 +55,11 @@ def get_dlrm(name: str) -> DLRMConfig:
     return DLRMS[name]
 
 
-def get_arch(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
-    return ARCHS[name]
+def all_cells():
+    """All 40 (arch × shape) dry-run cells with applicability flags."""
+    cells = []
+    for arch_name, cfg in ARCHS.items():
+        for shape_name, shape in SHAPES.items():
+            ok, why = shape_applicable(cfg, shape)
+            cells.append((arch_name, shape_name, ok, why))
+    return cells

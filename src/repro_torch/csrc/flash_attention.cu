@@ -22,11 +22,15 @@
 //
 // Design: one block of 256 threads per (64-query block, q-head, batch
 // row). The Q tile and each K/V tile are converted to f32 in shared memory
-// (rows padded by one float so the score loop reads no bank twice). Each
-// thread owns 4 query rows (ty + 16 i) and computes a 4 x 4 micro-tile of
-// scores, then keeps the running m and l of its 4 rows and a 4 x 8
-// micro-tile of the output in registers; row maxima and sums are reduced
-// over the 16 threads of a half-warp with shuffles. The k-block loop only
+// (rows padded by one float so the score loop reads no bank twice): 64 x
+// 64 tiles at every head dim, in dynamic shared memory past the 48 KB
+// default (cudaFuncSetAttribute), 115 KB at D=128 and 209 KB of the 227 KB
+// a block may have at D=256, so one block per SM there. Each thread owns 4
+// query rows (ty + 16 i) and computes a 4 x 4 micro-tile of scores, then
+// keeps the running m and l of its 4 rows and a 4 x NC micro-tile of the
+// output in registers (NC = 8 columns for D <= 128, 16 for D <= 256, two
+// instances); row maxima and sums are reduced over the 16 threads of a
+// half-warp with shuffles. The k-block loop only
 // visits tiles that some query of the block can reach (the Pallas
 // kernel's `pl.when(live)` guard). The products run on the f32 cores:
 // the tensor cores (`wgmma`), TMA staging and a pipelined tile ring are
@@ -45,9 +49,9 @@ using repro::to_f32;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int Hq,
@@ -76,13 +80,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     Qs[r * DP + c] = s < Sq ? to_f32(qbase[s * q_stride + c]) : 0.f;
   }
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = MASK_VALUE;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
   // k blocks some query of this block can reach (the Pallas live guard)
@@ -159,24 +163,25 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
       l[i] = l[i] * alpha + p_sum;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
       m[i] = m_new;
     }
     __syncthreads();                // P complete before P . V
 
     for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[8];
+      float pv[4], vv[NC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (BK + 1) + kk];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NC; ++c) {
         const int col = tx + 16 * c;
         vv[c] = col < D ? Vs[kk * D + col] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int c = 0; c < NC; ++c)
+          acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
@@ -186,30 +191,43 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     if (s >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < D) obase[s * q_stride + col] = from_f32<T>(acc[i][c] / li);
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, int causal,
-           int window, float softcap, float scale, cudaStream_t stream) {
+template <typename T, int NC>
+int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
+              int Sq, int Skv, int Hq, int Hkv, int D, int q_offset,
+              int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + BK) * (D + 1) + (size_t)BK * D +
                        (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, NC><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, D,
       q_offset, causal, window, softcap, scale);
   return (int)cudaGetLastError();
+}
+
+// NC output columns per thread: 8 cover D <= 128, 16 cover D <= 256
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, int causal,
+           int window, float softcap, float scale, cudaStream_t stream) {
+  if (D <= 128)
+    return launch_nc<T, 8>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, q_offset,
+                           causal, window, softcap, scale, stream);
+  return launch_nc<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, q_offset,
+                          causal, window, softcap, scale, stream);
 }
 
 }  // namespace

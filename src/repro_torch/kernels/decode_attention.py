@@ -13,8 +13,11 @@ slots, the serving engine's included) is the unsplit computation.
 
 * CUDA tensors launch K5 (``csrc/decode_attention.cu``): one thread block
   per (split, kv head, batch row) takes the G query heads of that kv head
-  together over its range; with more than one split a combine kernel merges
-  the partials. One call counts as one launch, whatever the split count.
+  together over its range (head dim up to 128: up to 8 q-heads per block;
+  up to 256: up to 4; a larger G is taken in chunks, a block each, over the
+  same range); with more than one split a combine kernel merges the
+  partials. One call counts as one launch, whatever the split or chunk
+  count.
 * CPU tensors run the plain version ``decode_attention_plain``, which runs
   the same split and combine; inside a split it follows the Pallas body: k
   blocks of ``block_k`` slots, f32 scores and softcap, running
@@ -35,8 +38,7 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.common import MASK_VALUE as NEG_INF
 
 BLOCK_K = 512         # the Pallas wrapper's default k block
-MAX_HEAD_DIM = 128    # a lane holds 4 elements of a row: 4 x 32
-MAX_GROUP = 8         # q heads per kv head the kernel holds in registers
+MAX_HEAD_DIM = 256    # a lane holds 4 (D <= 128) or 8 elements of a row
 SPLIT_SMS = 132       # the H100's SMs; the kernel runs one block on each
 SPLIT_MIN_SLOTS = 128 # no split of a cache of at most this many slots
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -127,10 +129,9 @@ def _check(q, k_cache, v_cache, cache_pos, pos) -> None:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
                          f"caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)}")
-    if D > MAX_HEAD_DIM or D % 4 or q.shape[2] // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: head_dim {D} (a multiple of 4, "
-                         f"at most {MAX_HEAD_DIM}) or group "
-                         f"{q.shape[2] // Hkv} (at most {MAX_GROUP})")
+    if D > MAX_HEAD_DIM or D % (4 if D <= 128 else 8):
+        raise ValueError(f"decode_attention: head_dim {D} (a multiple of 4 "
+                         f"up to 128, of 8 up to {MAX_HEAD_DIM})")
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} is not 16-byte "
@@ -157,8 +158,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     of the valid slots are read once (the kernel loads no row of an invalid
     slot), against about 4·G·D flops per slot. The cache is split into
     ``split_plan(B, Hkv, L)`` ranges, one block each per kv head and batch
-    row, so that a batch-1 call fills the card; each lane reads 4 elements
-    of a row in one vector load. With more than one split the partial
+    row, so that a batch-1 call fills the card; each lane reads 4 (head dim
+    up to 128) or 8 (up to 256) elements of a row in vector loads. With more than one split the partial
     softmaxes go to f32 scratch allocated here and a combine kernel merges
     them; the call counts one launch.
     """

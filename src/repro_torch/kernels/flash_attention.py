@@ -8,8 +8,8 @@ reference trains LMs through the chunked path, not through this kernel.
   tensor-core kernel (``csrc/flash_attention_tc.cu``: TMA loads into a
   shared-memory ring, ``wgmma`` for QK^T and for PV, P split into bf16 hi
   and lo parts so that it keeps f32 accuracy). Everything else (f32, other
-  head dims) takes the SIMT kernel (``csrc/flash_attention.cu``: products
-  on the f32 cores). In both, one thread block per (q block, q head, batch
+  head dims up to 256, bf16 at head dim 256 included) takes the SIMT
+  kernel (``csrc/flash_attention.cu``: products on the f32 cores). In both, one thread block per (q block, q head, batch
   row) walks the reachable k blocks with running f32 ``m``/``l``/``acc``.
   Neither gives way to the other on a failure.
 * CPU tensors run the plain version ``flash_attention_plain``, which follows
@@ -34,7 +34,7 @@ from repro_torch.kernels.common import MASK_VALUE as NEG_INF
 
 BLOCK_Q = 64          # the SIMT kernel's tile: 64 queries x 64 keys
 BLOCK_K = 64
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256    # the SIMT kernel's; 209 KB of shared memory at 256
 TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's head dims (bf16 only)
 
 

@@ -5,9 +5,11 @@ Port of ``repro/launch/serve.py``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --full --requests 8 --slots 4 --max-new 16 [--device cpu]
 
-The same flags as the reference, plus ``--full`` (the published config;
-without it ``reduce_config`` shrinks the model to its CPU-test size) and
-``--device``. Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU
+``--arch`` is any decoder arch of the zoo; an encoder-decoder arch
+(whisper-medium) exits as the reference does, since the engine serves
+decoder-only models. The same flags as the reference, plus ``--full`` (the
+published config; without it ``reduce_config`` shrinks the model to its
+CPU-test size) and ``--device``. Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU
 and no such request it raises. Weights are random, drawn from a
 ``torch.Generator`` seeded with ``--seed`` on the device; prompts come from
 ``numpy.random.default_rng(--seed)`` as in the reference.
@@ -35,6 +37,7 @@ class ServeRun(NamedTuple):
     tokens: int
     seconds: float
     steps: int
+    prompt_tokens: int
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,18 +56,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def serve(args) -> ServeRun:
-    device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = reduce_config(cfg)
+    if cfg.family == "encdec":
+        raise SystemExit("use whisper-specific pipelines for enc-dec serving")
+    device = resolve_device(args.device)
     api = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen)
     eng = ServeEngine(api, params, slots=args.slots, max_len=args.max_len)
 
     rng = np.random.default_rng(args.seed)
+    prompt_tokens = 0
     for rid in range(args.requests):
         plen = int(rng.integers(4, 16))
+        prompt_tokens += plen
         eng.submit(Request(rid=rid,
                            prompt=rng.integers(0, cfg.vocab_size, plen),
                            max_new_tokens=args.max_new))
@@ -76,7 +83,7 @@ def serve(args) -> ServeRun:
     toks = sum(len(c.tokens) for c in outs.values())
     print(f"arch={cfg.name} slots={args.slots}: {toks} tokens "
           f"in {dt:.2f}s ({toks/dt:.1f} tok/s, {eng.steps} steps)")
-    return ServeRun(cfg, outs, toks, dt, eng.steps)
+    return ServeRun(cfg, outs, toks, dt, eng.steps, prompt_tokens)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> ServeRun:

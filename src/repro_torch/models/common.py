@@ -2,7 +2,10 @@
 
 Port of ``repro/models/common.py``. ``dense_init`` draws from a
 ``torch.Generator``; everything else repeats the reference's expressions
-(f32 inside the norm and RoPE, the result cast back to the input dtype).
+(f32 inside the norms and RoPE, the result cast back to the input dtype).
+The reference's ``KeyGen`` (JAX keys) and ``stack_trees`` (stacks layer
+pytrees for ``lax.scan``) have no counterpart: the port draws from a
+``torch.Generator`` and keeps layers as lists.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def dense_init(generator: torch.Generator, shape, in_axis_size: int,
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
     x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # --- norms -------------------------------------------------------------------
@@ -47,6 +50,43 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with a plain ``w`` scale and ``b`` shift, the result
+    in ``x``'s dtype (no model of the zoo calls it; kept so that this module
+    holds all of the reference's)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+# --- causal depthwise conv (SSM and RG-LRU blocks) -----------------------------
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, as ``_causal_conv`` of the reference's
+    ``ssm.py`` and ``rglru.py``. x: (B, L, C); w: (W, C)."""
+    W, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = xp[:, 0:L, :] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + L, :] * w[i]
+    return out + b
+
+
+def conv_step(window: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """The last position of ``causal_conv`` over a (B, W, C) window: the
+    same products and sums in the same order, so a decode step rounds as
+    the forward does (the reference writes it as an einsum)."""
+    out = window[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + window[:, i] * w[i]
+    return out + b
 
 
 # --- RoPE --------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Decoder-only LM of the attention families (``global`` and ``local`` layers).
+"""Decoder-only LM of every decoder family: dense, MoE, SSM, hybrid, VLM.
 
-Port of ``repro/models/transformer.py`` for its dense attention layers:
-full-sequence forward (``forward_lm``, ``lm_loss``) through K4, and cached
-decoding (``decode_step_lm``, ``prefill_into_cache``) through K5, both by
-way of ``kernels/ops.py``.
+Port of ``repro/models/transformer.py``. Layers are ``global`` and
+``local`` attention (full-sequence forward through K4, decoding through
+K5, by way of ``kernels/ops.py``), ``ssm`` (Mamba-2 SSD,
+``models/ssm.py``) and ``recurrent`` (RG-LRU, ``models/rglru.py``); the
+MLP of an attention layer is the MoE block when the config has experts.
 
 Differences from the reference, all of form, none of result:
 
@@ -12,42 +13,29 @@ Differences from the reference, all of form, none of result:
   layer pattern over the pattern groups and scans over them.
   ``params_from_jax`` unstacks a reference tree into this form.
 * A decode cache is ``{"step": int, "global_pos"/"local_pos": (B, Lc)
-  int32, "layers": [{"k", "v"}, ...]}``. ``decode_step_lm`` writes this
-  step's slot into it in place and returns it, where the reference returns
-  a new tree: a full-width cache is rewritten one slot per step instead of
-  copied whole. The step is a host integer, so slot indices cost no device
-  round trip.
-
-``ssm`` and ``recurrent`` layers and MoE MLPs raise ``NotImplementedError``
-(ROADMAP §1 item 11).
+  int32, "layers": [...]}``, one entry per layer: ``{"k", "v"}`` for
+  attention, ``{"conv", "state"}`` for SSM and ``{"conv", "h"}`` for
+  RG-LRU layers. ``decode_step_lm`` writes this step into it in place and
+  returns it, where the reference returns a new tree: a full-width cache
+  is rewritten one slot per step instead of copied whole. The step is a
+  host integer, so slot indices cost no device round trip.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, reduce_config
 from repro_torch.kernels import ops
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_rope, dense_init, dtype_of,
                                        pad_vocab, pattern_split, rms_norm)
 
 Params = Dict[str, Any]
-ATTN_LAYER_KINDS = ("global", "local")
-
-
-def require_supported(kind: str, cfg: ModelConfig) -> None:
-    if kind not in ATTN_LAYER_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r} is not ported yet (ROADMAP §1 "
-            "item 11: ssm.py, rglru.py); only global/local attention layers")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE MLPs are not ported yet (ROADMAP §1 item 11: "
-            "mlp.py MoE)")
 
 
 # ===========================================================================
@@ -148,28 +136,49 @@ def attn_decode(p: Params, x: torch.Tensor, kv_cache: Dict[str, torch.Tensor],
 # ===========================================================================
 def init_layer(kind: str, cfg: ModelConfig, gen: torch.Generator,
                dtype) -> Params:
-    require_supported(kind, cfg)
-    d = cfg.d_model
-    return {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
-            "ln2": torch.zeros((d,), dtype=dtype, device=gen.device),
-            "attn": init_attn(gen, cfg, dtype),
-            "mlp": mlp_mod.init_mlp(gen, cfg, dtype)}
+    d, dev = cfg.d_model, gen.device
+    if kind == "ssm":
+        return {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
+                "ssm": ssm_mod.init_ssm(gen, cfg, dtype)}
+    p: Params = {"ln1": torch.zeros((d,), dtype=dtype, device=dev),
+                 "ln2": torch.zeros((d,), dtype=dtype, device=dev)}
+    if kind == "recurrent":
+        p["rec"] = rglru_mod.init_rglru(gen, cfg, dtype)
+    else:
+        p["attn"] = init_attn(gen, cfg, dtype)
+    if cfg.n_experts and kind in ("global", "local"):
+        p["moe"] = mlp_mod.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(gen, cfg, dtype)
+    return p
 
 
 def apply_layer(kind: str, p: Params, x: torch.Tensor, cfg: ModelConfig,
                 q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux_loss); aux is 0 for dense layers."""
-    require_supported(kind, cfg)
+    """Returns (x, aux_loss); aux is the MoE router's loss, else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_apply(p["attn"], h, cfg, kind, q_offset)
+    if kind == "ssm":
+        return x + ssm_mod.ssm_forward(p["ssm"], h, cfg), aux
+    if kind == "recurrent":
+        y, _ = rglru_mod.rglru_forward(p["rec"], h, cfg)
+    else:
+        y = attn_apply(p["attn"], h, cfg, kind, q_offset)
+    x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_mod.mlp_block(p["mlp"], h, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if "moe" in p:
+        y, aux = mlp_mod.moe_block(p["moe"], h, cfg)
+    else:
+        y = mlp_mod.mlp_block(p["mlp"], h, cfg)
+    return x + y, aux
 
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, device) -> Dict[str, torch.Tensor]:
-    require_supported(kind, cfg)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "recurrent":
+        return rglru_mod.init_rglru_cache(cfg, batch, dtype, device)
     Lc = min(cfg.local_window, max_len) if kind == "local" else max_len
     shape = (batch, Lc, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -181,13 +190,22 @@ def decode_layer(kind: str, p: Params, x: torch.Tensor,
                  pos_tree: Mapping[str, torch.Tensor], step: int,
                  cfg: ModelConfig):
     """Returns (x, cache). pos_tree: {"global": (B, Lg), "local": (B, Ll)}."""
-    require_supported(kind, cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, cache = attn_decode(p["attn"], h, cache, pos_tree[kind], step, cfg,
-                           kind)
+    if kind == "ssm":
+        y, cache = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg)
+        return x + y, cache
+    if kind == "recurrent":
+        y, cache = rglru_mod.rglru_decode(p["rec"], h, cache, cfg)
+    else:
+        y, cache = attn_decode(p["attn"], h, cache, pos_tree[kind], step,
+                               cfg, kind)
     x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_block(p["mlp"], h, cfg), cache
+    if "moe" in p:
+        y, _ = mlp_mod.moe_block(p["moe"], h, cfg)
+    else:
+        y = mlp_mod.mlp_block(p["mlp"], h, cfg)
+    return x + y, cache
 
 
 # ===========================================================================
@@ -227,6 +245,13 @@ def _map_leaves(fn, tree):
     return fn(tree)
 
 
+def _zip_leaves(fn, tree, like):
+    """``fn(leaf, like_leaf)`` over two dicts of the same structure."""
+    if isinstance(tree, Mapping):
+        return {k: _zip_leaves(fn, v, like[k]) for k, v in tree.items()}
+    return fn(tree, like)
+
+
 def params_to(params: Params, device) -> Params:
     """A copy of ``params`` on ``device``."""
     return _map_leaves(lambda t: t.to(device, copy=True), params)
@@ -235,7 +260,9 @@ def params_to(params: Params, device) -> Params:
 def params_from_jax(cfg: ModelConfig, np_tree: Mapping[str, Any],
                     device) -> Params:
     """The reference's ``init_lm`` tree (numpy leaves) as this package's
-    params on ``device``, in ``cfg.param_dtype``.
+    params on ``device``, each leaf in the reference's dtype: ``cfg``'s
+    param dtype, but f32 for the MoE router, the SSM's ``dt_bias``,
+    ``A_log`` and ``D`` and the RG-LRU's gates and ``lam``.
 
     The reference stacks position ``i`` of the layer pattern over the
     ``n_groups`` pattern groups (``np_tree["pattern"][i]``, leading axis
@@ -259,13 +286,13 @@ def params_from_jax(cfg: ModelConfig, np_tree: Mapping[str, Any],
                          f"{len(np_tree['rest'])} rest layers, {cfg.name} "
                          f"has {len(pattern)} and {len(rest)}")
 
-    def conv(leaf):
+    def conv(leaf, dt=dtype):
         return torch.tensor(np.asarray(leaf, np.float32),
-                            device=device).to(dtype)
+                            device=device).to(dt)
 
-    # leaf names of each kind, from a tiny layer of the same structure
-    probe_cfg = dataclasses.replace(cfg, d_model=2, d_ff=2, n_heads=1,
-                                    n_kv_heads=1, head_dim=2)
+    # leaf names and dtypes of each kind, from a tiny layer of the same
+    # structure
+    probe_cfg = reduce_config(cfg)
     probe_gen = torch.Generator().manual_seed(0)
     unstacked: List[Tuple[str, Mapping[str, Any]]] = []
     for g in range(n_groups):
@@ -281,12 +308,13 @@ def params_from_jax(cfg: ModelConfig, np_tree: Mapping[str, Any],
     unstacked += list(zip(rest, np_tree["rest"]))
     layers = []
     for n, (kind, tree) in enumerate(unstacked):
-        want = _leaf_names(init_layer(kind, probe_cfg, probe_gen,
-                                      torch.float32))
+        probe = init_layer(kind, probe_cfg, probe_gen, dtype)
+        want = _leaf_names(probe)
         if _leaf_names(tree) != want:
             raise ValueError(f"params_from_jax: layer {n} ({kind}) has "
                              f"leaves {_leaf_names(tree)}, expected {want}")
-        layers.append(_map_leaves(conv, tree))
+        layers.append(_zip_leaves(lambda a, t: conv(a, t.dtype), tree,
+                                  probe))
     out: Params = {k: conv(np_tree[k]) for k in top - {"pattern", "rest"}}
     out["layers"] = layers
     return out

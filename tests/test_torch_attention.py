@@ -101,6 +101,10 @@ FLASH_CASES = [
     (2, 24, 1, 2, 64, False, 8, "float32"),
     (2, 8, 2, 4, 16, True, 8, "bfloat16"),
     (1, 64, 1, 2, 32, True, None, "bfloat16"),
+    # recurrentgemma's local layers: head dim 256, 10 q-heads over one kv
+    (1, 40, 1, 10, 256, True, 16, "float32"),
+    (1, 24, 1, 10, 256, False, None, "bfloat16"),
+    (2, 40, 1, 10, 256, True, None, "bfloat16"),
 ]
 
 
@@ -255,6 +259,31 @@ def test_decode_plain_matches_pallas_and_oracle(B, L, Hkv, G, window,
            "vs ref.decode_attention_ref")
     _close(tda.decode_attention_plain(tq, tk, tv, tcp, tpos, window=window),
            got, _tol(q_dtype), "default block")
+
+
+WIDE_DECODE_CASES = [
+    # B, L, Hkv, G, D, window, valid_frac, q dtype, cache dtype: head dim 256
+    # and 10 q-heads per kv-head (recurrentgemma's local layers)
+    (1, 40, 1, 10, 256, 16, 0.8, "bfloat16", "float32"),   # the engine's pair
+    (2, 48, 1, 10, 256, None, 1.0, "float32", "float32"),
+    (1, 40, 1, 10, 256, 16, 0.9, "bfloat16", "bfloat16"),
+    (1, 400, 1, 10, 256, 150, 0.9, "float32", "float32"),  # split
+]
+
+
+@pytest.mark.parametrize("B,L,Hkv,G,D,window,valid_frac,q_dtype,c_dtype",
+                         WIDE_DECODE_CASES)
+def test_decode_plain_wide_heads_match_pallas_and_oracle(
+        B, L, Hkv, G, D, window, valid_frac, q_dtype, c_dtype):
+    (jq, tq), (jk, tk), (jv, tv), (jcp, tcp), (jpos, tpos) = _cache(
+        L + G, B, L, Hkv, G, D, valid_frac, q_dtype, c_dtype)
+    got = tda.decode_attention_plain(tq, tk, tv, tcp, tpos, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kernel = pallas_decode(jq, jk, jv, jcp, jpos, window=window, block_k=16)
+    _close(got, kernel, _tol(q_dtype), "vs the Pallas kernel")
+    oracle = decode_attention_ref(jq, jk, jv, jcp, jpos, window=window)
+    _close(got, oracle, 3e-5 if q_dtype == "float32" else BF16_TOL,
+           "vs ref.decode_attention_ref")
 
 
 def _split_cache_pos(layout, B, L):

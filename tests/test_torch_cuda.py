@@ -25,8 +25,14 @@ f32, in other summation orders, and round once at the end (K4's
 tensor-core route carries p as a bf16 hi + lo pair, about 2^-17). K4 cases
 in bf16 with head dim 64 or 128 take the tensor-core route, the rest the
 SIMT route; K5 cases of 600 or more slots are split across the cache.
+Head dim 256 with 10 q-heads per kv-head (recurrentgemma's local layers)
+takes K4's SIMT route at both dtypes and K5's wide instance; Whisper's
+non-causal encoder and cross-attention shapes (``Sq = 1`` against a key
+count that is no multiple of the tile) run on both K4 routes.
 The reduced LM's logits on the card match the CPU's within 1e-4, and the
-serving engine gives the CPU's greedy tokens.
+serving engine gives the CPU's greedy tokens; so do the reduced MoE, SSM,
+hybrid and enc-dec models, forward and decode, with K4 and K5 launched
+once per attention layer and call.
 
 The lifecycle example (``examples/elastic_dlrm_train_torch.py``) at a small
 config runs 151 steps on the card: K1 launches twice per executed step
@@ -58,6 +64,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_embedding as fe  # noqa: E402
 from repro_torch.kernels import fused_update as fu  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.dlrm import dlrm_loss  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -519,6 +526,122 @@ def test_k5_matches_plain(dev, L, G, D, window, softcap, layout, q_dtype,
     _attn_close(got, want, q_dtype, "cpu")
     if layout == "empty-row":
         assert torch.equal(got[1].cpu(), torch.zeros_like(want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,Hkv,G,D,causal,window", [
+    (130, 130, 1, 10, 256, True, 64),      # recurrentgemma local: SIMT D=256
+    (200, 200, 1, 10, 256, False, None),
+    (300, 300, 2, 1, 64, False, None),     # whisper encoder: ragged tiles
+    (1, 300, 2, 1, 64, False, None),       # cross-attention of a decode step
+    (40, 300, 2, 1, 64, False, None),      # teacher-forced cross-attention
+])
+def test_k4_wide_heads_and_encdec_shapes(dev, Sq, Skv, Hkv, G, D, causal,
+                                         window, dtype):
+    rng = np.random.default_rng(Sq + Skv + D)
+    B = 2
+    q = torch.from_numpy(rng.standard_normal((B, Sq, Hkv * G, D))
+                         .astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))
+                             .astype(np.float32)).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    assert fa.tc_route(q, k) == (dtype == torch.bfloat16 and D == 64)
+    cuda_lib.reset_launches()
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _attn_close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, "cpu")
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("L,Hkv,G,D,window,layout", [
+    (128, 1, 10, 256, None, "full"),       # recurrentgemma, engine's cache
+    (700, 1, 10, 256, 300, "ring"),        # split, wrapped ring + window
+    (1000, 1, 10, 256, None, "padded"),    # split, empty splits
+    (64, 2, 10, 128, None, "full"),        # G past 8 at D <= 128
+    (48, 1, 3, 200, 16, "ring"),           # D=200, no power of two
+])
+def test_k5_wide_heads_match_plain(dev, L, Hkv, G, D, window, layout,
+                                   q_dtype, c_dtype):
+    rng = np.random.default_rng(L + G + D)
+    B = 3
+    q = torch.from_numpy(rng.standard_normal((B, 1, Hkv * G, D))
+                         .astype(np.float32)).to(q_dtype)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, L, Hkv, D))
+                               .astype(np.float32)).to(c_dtype)
+              for _ in range(2))
+    slots = np.arange(L)
+    if layout == "ring":
+        cache_pos, pos = np.where(slots < 10, slots + L, slots), L + 9
+    else:
+        n_valid = L if layout == "full" else L // 3
+        cache_pos, pos = np.where(slots < n_valid, slots, -1), n_valid - 1
+    cp = torch.from_numpy(np.broadcast_to(cache_pos, (B, L))
+                          .astype(np.int32).copy())
+    pos = torch.full((B,), pos, dtype=torch.int32)
+    kw = dict(window=window)
+    cuda_lib.reset_launches()
+    got = da.decode_attention(q.to(dev), kc.to(dev), vc.to(dev), cp.to(dev),
+                              pos.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["decode_attention"] == 1
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    _attn_close(got, da.decode_attention_plain(q, kc, vc, cp, pos, **kw),
+                q_dtype, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "recurrentgemma-2b", "whisper-medium"])
+def test_reduced_zoo_on_card_matches_cpu(dev, arch):
+    """One MoE, SSM, hybrid and enc-dec model, reduced (f32): the card's
+    forward and sequential decode against the CPU's within 1e-4, with K4
+    and K5 launched once per attention layer and call."""
+    cfg = reduce_config(get_arch(arch))
+    api = build_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0))
+    gparams = tf.params_to(params, dev)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12))
+                            .astype(np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    n_attn = sum(k in ("global", "local") for k in cfg.layer_kinds)
+    cuda_lib.reset_launches()
+    got = api.prefill(gparams, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    want = api.prefill(params, batch)
+    k4_forward = (cfg.encoder_layers + 2 * cfg.num_layers
+                  if cfg.family == "encdec" else n_attn)
+    assert cuda_lib.LAUNCHES["flash_attention"] == k4_forward
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    cuda_lib.reset_launches()
+    seqs = []
+    for p, device in ((gparams, dev), (params, "cpu")):
+        cache = api.init_cache(2, 12, torch.float32, device)
+        if cfg.family == "encdec":
+            encdec.fill_cross_cache(p, cache, batch["frames"].to(device),
+                                    cfg)
+        out = []
+        for t in range(12):
+            logits, cache = api.decode_step(p, cache,
+                                            toks[:, t:t + 1].to(device))
+            out.append(logits[:, 0].cpu())
+        seqs.append(torch.stack(out, 1))
+        if device == dev:
+            counts = dict(cuda_lib.LAUNCHES)
+    layers = cfg.num_layers if cfg.family == "encdec" else n_attn
+    assert counts["decode_attention"] == 12 * layers
+    assert counts["flash_attention"] == (
+        cfg.encoder_layers + 12 * cfg.num_layers
+        if cfg.family == "encdec" else 0)
+    rel = float((seqs[0] - seqs[1]).abs().max() / seqs[1].abs().max())
+    assert rel < 1e-4, rel
 
 
 def _lm_cfg():

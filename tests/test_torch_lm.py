@@ -26,6 +26,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import base as jbase  # noqa: E402
+from repro.configs import registry as jreg  # noqa: E402
 from repro.configs.registry import ARCHS as JARCHS  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro.models import mlp as jmlp  # noqa: E402
@@ -78,23 +79,28 @@ def _close(got, want, msg=""):
 # configs
 # ---------------------------------------------------------------------------
 def test_configs_match_reference():
-    jcfg, tcfg = JARCHS["llama3.2-3b"], treg.get_arch("llama3.2-3b")
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    assert tcfg.layer_kinds == jcfg.layer_kinds
-    assert tcfg.param_count() == jcfg.param_count()
-    assert dataclasses.asdict(tbase.reduce_config(tcfg)) == \
-        dataclasses.asdict(jbase.reduce_config(jcfg))
+    assert list(treg.ARCHS) == list(JARCHS)
     assert {k: dataclasses.asdict(v) for k, v in tbase.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
-    for name, cfg in JARCHS.items():
-        port = _port_cfg(cfg)
-        assert port.layer_kinds == cfg.layer_kinds, name
-        assert port.param_count() == cfg.param_count(), name
+    for name, jcfg in JARCHS.items():
+        tcfg = treg.get_arch(name)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), name
+        assert tcfg.layer_kinds == jcfg.layer_kinds, name
+        assert tcfg.param_count() == jcfg.param_count(), name
+        assert tcfg.param_count(active_only=True) == \
+            jcfg.param_count(active_only=True), name
+        assert dataclasses.asdict(tbase.reduce_config(tcfg)) == \
+            dataclasses.asdict(jbase.reduce_config(jcfg)), name
         for shape in jbase.SHAPES.values():
-            assert tbase.shape_applicable(port, tbase.SHAPES[shape.name]) \
-                == jbase.shape_applicable(cfg, shape)
-    with pytest.raises(KeyError):
-        treg.get_arch("mamba2-2.7b")
+            assert tbase.shape_applicable(tcfg, tbase.SHAPES[shape.name]) \
+                == jbase.shape_applicable(jcfg, shape)
+    for shape in jbase.SHAPES:
+        assert dataclasses.asdict(treg.get_shape(shape)) == \
+            dataclasses.asdict(jreg.get_shape(shape))
+    assert treg.all_cells() == jreg.all_cells()
+    for bad in (treg.get_arch, treg.get_shape):
+        with pytest.raises(KeyError):
+            bad("nope")
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +296,3 @@ def test_port_decode_matches_port_forward(variant):
                                     cfg)
     rel = float((full - seq).abs().max() / full.abs().max())
     assert rel < 2e-4, rel
-
-
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b",
-                                  "granite-moe-1b-a400m", "whisper-medium"])
-def test_unported_families_raise(arch):
-    cfg = _port_cfg(jbase.reduce_config(JARCHS[arch]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
