@@ -170,12 +170,42 @@ f32 caches):
     timed as in phase 11 with the plain version, SDPA and the bound. (f)
     per model: ms per decode step, tok/s served, peak memory.
 
+LM training, run last (adamw at LM_LR, remat; attention trains on the
+chunked route of ``models/attention.py``, so no kernel launches in a train
+step):
+
+16. (a) ``repro_torch.launch.train --arch llama3.2-3b --full --steps 10
+    --batch 8 --seq 64`` (28 layers, 3.2 B params, bf16): losses finite,
+    the mean of the last 3 below the first, 10 steps, exactly-once
+    coverage of 80 samples, no kernel launched, peak memory under 80 GB;
+    ms per step (median of steps 3-10, synchronised) and tokens/s. (c)
+    the eval step on the trained state: K4 exactly once per layer (28),
+    its loss within LM_EVAL_REL of the training route's on the same
+    params and batch. A ``torch.profiler`` split of one step: the whole
+    step, its forward + backward and its optimizer in windows of their
+    own (device time, host gaps, idle share). (b) two steps at B=1,
+    S=2048: ms and peak memory. (d) three launcher steps of
+    granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b and
+    whisper-medium at full width and depth (B=8, S=64; whisper's 1,500
+    zero frames): losses finite, no kernel launched, ms per step and peak
+    memory. (e) card against CPU, f32, full width cut to 2 layers, B=2,
+    S=64, TF32 off: the loss within LM_CARD_CPU_LOSS_REL, every gradient
+    leaf within LM_CARD_CPU_GRAD_REL, the params after one adamw step
+    within 2 lr element by element and the loss after it within
+    LM_CARD_CPU_STEP_LOSS_REL. (f) ``--ckpt-dir --ckpt-every 5`` for 10
+    steps at full width cut to 2 layers (a temporary directory under
+    ``build/``), then ``--resume --steps 5``: blobs 5 and 10, the state
+    restored from disk equal to the saved one bit for bit, the resumed
+    run's first loss equal to a step of the saved state in process; the
+    memory tier, persist and restore times.
+
 Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle``,
-``sim`` and ``lm_zoo`` JSON lines, the ``kernels`` JSON line (K1-K5; K1-K3
-with their phase-13 launches under ``launches_selfheal``, K1 with phase
-14's under ``launches_lifecycle``, K4 and K5 with phase 15's per model
-under ``launches_lm_zoo`` and their phase-15 timings under
-``at_lm_zoo_shapes``), and last ``{"ok": true, "device": {...}}``. Full
+``sim``, ``lm_zoo`` and ``lm_train`` JSON lines, the ``kernels`` JSON line
+(K1-K5; K1-K3 with their phase-13 launches under ``launches_selfheal``, K1
+with phase 14's under ``launches_lifecycle``, K4 and K5 with phase 15's per
+model under ``launches_lm_zoo`` and their phase-15 timings under
+``at_lm_zoo_shapes``, K4 with phase 16's per train step and per eval under
+``launches_lm_train``), and last ``{"ok": true, "device": {...}}``. Full
 details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -779,7 +809,8 @@ def _device_summary(prof, wall_us, n_steps, top):
     import torch
     device = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key in TRAIN_RANGES:      # annotations, not kernels
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -2507,6 +2538,386 @@ def phase_zoo(report, dev):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 16: LM training (train and eval steps, remat, adamw leaf by leaf,
+# the launcher's LM mode, LM checkpoints and resume) at llama3.2-3b's full
+# width
+# ---------------------------------------------------------------------------
+# adamw's rate for the full-width models: at the launcher's default 3e-3,
+# tuned for the reduced configs, llama3.2-3b's loss rose over 10 steps
+# (12.28 -> 14.66; at 3e-4 12.28 -> 12.03; H100 80GB HBM3, 700 W)
+LM_LR = 3e-4
+LM_TRAIN_ARGV = ["--arch", "llama3.2-3b", "--full", "--batch", "8", "--seq",
+                 "64", "--lr", str(LM_LR), "--device", "cuda"]
+LM_TRAIN_STEPS = 10
+LM_TRAIN_TIMED_FROM = 2           # the median over steps 3-10
+LM_EVAL_REL = 1e-2                # K4 route vs the training route, bf16
+LM_PEAK_BYTES = 80e9              # the card's 80 GB
+LM_LONG_SEQ = 2048                # (b): one sequence of 2,048 tokens
+LM_FAMILIES = ("granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b",
+               "whisper-medium")
+LM_FAMILY_STEPS = 3
+LM_CARD_CPU_LAYERS = 2            # (e): full width, f32, B=2, S=64
+LM_CARD_CPU_LOSS_REL = 1e-5
+LM_CARD_CPU_GRAD_REL = 1e-4       # per leaf, ||card - cpu|| / ||cpu||
+LM_CARD_CPU_STEP_LOSS_REL = 1e-4  # the loss after one adamw step
+LM_CKPT_LAYERS = 2                # (f): full width; the full-depth state is
+                                  # 38.5 GB of host memory and disk
+# the trainer's profiler ranges (host-side spans, not device time)
+TRAIN_RANGES = ("train_step.forward_backward", "train_step.optimizer")
+
+
+def _lm_batch(cfg, dev, B, S, start=0):
+    import numpy as np
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import train as launch
+    batch = launch.to_device(lm_batch(0, np.arange(start, start + B), S,
+                                      cfg.vocab_size), dev)
+    if cfg.family == "encdec":
+        import torch
+        batch["frames"] = torch.zeros((B, cfg.n_frames, cfg.d_model),
+                                      dtype=torch.float32, device=dev)
+    return batch
+
+
+def _profiled(fn, top=8):
+    """``torch.profiler`` over ``fn()`` ending in a synchronise: its
+    result and the device summary of that one window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    info, device = _device_summary(prof, wall_us, 1, top)
+    check(device, "phase 16: torch.profiler showed no device events")
+    info["host_gap_ms"] = info["wall_ms_per_step"] - info["device_ms_per_step"]
+    return out, info
+
+
+def _lm_train_full(report, dev):
+    """(a) the launcher at full width and depth, (c) eval on its state,
+    the profiler split, (b) one sequence of 2,048 tokens."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train import optim, trainer
+    info = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = LM_TRAIN_ARGV + ["--steps", str(LM_TRAIN_STEPS)]
+    log(f"phase 16 (a) launcher: {' '.join(argv)}")
+    run, counts = _driven(argv, ())
+    peak = torch.cuda.max_memory_allocated()
+    cfg, api, opt = run.cfg, run.api, run.opt
+    B, S = 8, 64
+    losses = run.losses
+    check(sum(counts.values()) == 0, f"LM training launched kernels: "
+          f"{counts} (attention trains on the chunked route)")
+    check(len(losses) == LM_TRAIN_STEPS and run.state["step"] ==
+          LM_TRAIN_STEPS, f"{len(losses)} steps, state at step "
+          f"{run.state['step']}, want {LM_TRAIN_STEPS}")
+    check(run.exactly_once and run.covered == LM_TRAIN_STEPS * B
+          and run.dup == 0, f"coverage exact={run.exactly_once} covered="
+          f"{run.covered} dup={run.dup}")
+    last3 = sum(losses[-3:]) / 3
+    check(last3 < losses[0], f"loss did not fall: first {losses[0]}, mean of"
+          f" the last 3 {last3}")
+    check(peak < LM_PEAK_BYTES, f"peak memory {peak / 1e9:.2f} GB")
+    timed = sorted(run.step_seconds[LM_TRAIN_TIMED_FROM:])
+    med = timed[len(timed) // 2] if len(timed) % 2 else \
+        (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    n_params = sum(t.numel() for t in _leaves(run.state["params"]))
+    info["launcher"] = {
+        "argv": argv, "params": n_params, "losses": losses,
+        "grad_norms": run.grad_norms, "step_ms": [s * 1e3 for s in
+                                                  run.step_seconds],
+        "median_step_ms_3_10": med * 1e3, "tokens_per_s": B * S / med,
+        "launcher_seconds": run.seconds, "peak_bytes": peak,
+        "peak_gb": peak / 1e9, "launches": counts,
+        "coverage": {"exact": run.exactly_once, "covered": run.covered,
+                     "dup": run.dup}}
+    log(f"phase 16 (a) {n_params / 1e9:.3f} B params: loss {losses[0]:.4f} ->"
+        f" {losses[-1]:.4f} (last 3 {last3:.4f}); {med * 1e3:.1f} ms per "
+        f"step (median of steps 3-10), {B * S / med:.0f} tokens/s; peak "
+        f"{peak / 1e9:.2f} GB; launches {counts}")
+
+    # (c) eval on the trained state: K4 once per layer, against the
+    # training route's loss on the same params and batch
+    state = run.state
+    del run
+    batch = _lm_batch(cfg, dev, B, S, start=LM_TRAIN_STEPS * B)
+    cuda_lib.reset_launches()
+    eval_loss = float(trainer.make_eval_step(api)(state, batch))
+    eval_counts = dict(cuda_lib.LAUNCHES)
+    with torch.enable_grad():
+        leaves = optim.tree_map(lambda t: t.detach().requires_grad_(),
+                                state["params"])
+        cuda_lib.reset_launches()
+        train_loss = float(api.loss(leaves, batch, remat=False))
+        train_counts = dict(cuda_lib.LAUNCHES)
+        del leaves
+    n_attn = _n_attn(cfg)
+    check(eval_counts["flash_attention"] == n_attn and sum(
+        eval_counts.values()) == n_attn, f"eval launched {eval_counts}, want "
+          f"K4 x {n_attn}")
+    check(sum(train_counts.values()) == 0, f"the training route launched "
+          f"{train_counts}")
+    rel = abs(eval_loss - train_loss) / abs(train_loss)
+    check(math.isfinite(eval_loss) and rel < LM_EVAL_REL, f"eval loss "
+          f"{eval_loss} vs training route {train_loss}: rel {rel:.3g}")
+    info["eval"] = {"loss_k4_route": eval_loss,
+                    "loss_training_route": train_loss, "rel": rel,
+                    "bound": LM_EVAL_REL, "launches": eval_counts}
+    log(f"phase 16 (c) eval: loss {eval_loss:.5f} on the K4 route "
+        f"({eval_counts['flash_attention']} K4 launches), {train_loss:.5f} "
+        f"on the training route (rel {rel:.3g}, bound {LM_EVAL_REL})")
+
+    # the profiler split of one step: the whole (donated) step, then its
+    # forward + backward and its optimizer in windows of their own
+    step = trainer.make_train_step(api, opt, remat=True, donate=True)
+    (state, _), whole = _profiled(lambda: step(state, batch))
+    (loss, grads), fb = _profiled(lambda: trainer.loss_and_grads(
+        api, state["params"], batch, remat=True))
+
+    def optimizer_part():
+        optim.global_norm(grads)
+        return optim.update_and_apply(opt, grads, state["opt"],
+                                      state["params"], donate=True)
+    (params, opt_state), op = _profiled(optimizer_part)
+    state = {"params": params, "opt": opt_state, "step": state["step"] + 1}
+    del grads, params, opt_state, loss
+    info["profile"] = {"step": whole, "forward_backward": fb,
+                       "optimizer": op}
+    for name, p in info["profile"].items():
+        log(f"phase 16 profile {name}: {p['wall_ms_per_step']:.1f} ms wall, "
+            f"{p['device_ms_per_step']:.1f} ms device, host gaps "
+            f"{p['host_gap_ms']:.1f} ms, idle share "
+            f"{p['device_idle_share']:.3f}, {p['device_events_per_step']:.0f}"
+            " device events")
+        for t in p["top_device_time"][:4]:
+            log(f"    {t['ms_per_step']:.3f} ms x{t['calls_per_step']:.0f} "
+                f"{t['name']}")
+
+    # (b) one sequence of 2,048 tokens, remat, two donated steps
+    long_batch = _lm_batch(cfg, dev, 1, LM_LONG_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    ms = []
+    for _ in range(2):
+        (state, m), sec = _sync_s(lambda: step(state, long_batch))
+        ms.append(sec * 1e3)
+        check(math.isfinite(float(m["loss"])), "non-finite loss at S=2048")
+    long_peak = torch.cuda.max_memory_allocated()
+    check(sum(cuda_lib.LAUNCHES.values()) == 0, "a kernel launched in the "
+          f"S=2048 train step: {dict(cuda_lib.LAUNCHES)}")
+    check(long_peak < LM_PEAK_BYTES, f"S=2048: peak {long_peak / 1e9:.2f} GB")
+    info["long"] = {"batch": 1, "seq": LM_LONG_SEQ, "step_ms": ms,
+                    "tokens_per_s": LM_LONG_SEQ / (ms[-1] / 1e3),
+                    "peak_gb": long_peak / 1e9}
+    log(f"phase 16 (b) B=1 S={LM_LONG_SEQ}: {ms[0]:.1f}, {ms[1]:.1f} ms per "
+        f"step, peak {long_peak / 1e9:.2f} GB")
+    del state, batch, long_batch, step
+    torch.cuda.empty_cache()
+    return info
+
+
+def _lm_train_families(dev):
+    """(d) three launcher steps of each other family at full width and
+    depth."""
+    import torch
+    out = {}
+    for arch in LM_FAMILIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        argv = ["--arch", arch, "--full", "--batch", "8", "--seq", "64",
+                "--lr", str(LM_LR), "--steps", str(LM_FAMILY_STEPS),
+                "--device", "cuda"]
+        run, counts = _driven(argv, ())
+        check(sum(counts.values()) == 0, f"{arch} training launched "
+              f"{counts}")
+        check(len(run.losses) == LM_FAMILY_STEPS, f"{arch}: "
+              f"{len(run.losses)} steps")
+        ms = [s * 1e3 for s in run.step_seconds]
+        out[arch] = {"layers": run.cfg.num_layers, "params": sum(
+            t.numel() for t in _leaves(run.state["params"])),
+            "losses": run.losses, "step_ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
+        del run
+        log(f"phase 16 (d) {arch}: losses {[round(x, 4) for x in out[arch]['losses']]}"
+            f", {ms[-1]:.1f} ms at step {LM_FAMILY_STEPS}, peak "
+            f"{out[arch]['peak_gb']:.2f} GB, K4 {counts['flash_attention']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_train_card_cpu(dev):
+    """(e) card against CPU: f32, full width, 2 layers, B=2, S=64, TF32 off:
+    loss, every gradient leaf, one adamw step, the loss after it."""
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optim, trainer
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    cfg = _zoo_cfg("llama3.2-3b", num_layers=LM_CARD_CPU_LAYERS,
+                   param_dtype="float32", compute_dtype="float32")
+    api = build_model(cfg)
+    opt = optim.adamw(LM_LR)
+    cpu_params = api.init(torch.Generator().manual_seed(ZOO_SEED))
+    params = tf.params_to(cpu_params, dev)
+    cpu_batch = _lm_batch(cfg, "cpu", 2, 64)
+    batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    loss, grads = trainer.loss_and_grads(api, params, batch, remat=True)
+    closs, cgrads = trainer.loss_and_grads(api, cpu_params, cpu_batch,
+                                           remat=True)
+    loss_rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    grad_rel = {}
+    got, want = _flat_named(grads), _flat_named(cgrads)
+    for name, w in want.items():
+        grad_rel[name] = float((got[name].cpu() - w).norm() / w.norm())
+    worst = max(grad_rel, key=grad_rel.get)
+    del got, want
+    # one adamw step from the gradients above, on each device
+    state = {"step": 1}
+    state["params"], state["opt"] = optim.update_and_apply(
+        opt, grads, opt.init(params), params)
+    cstate = {"step": 1}
+    cstate["params"], cstate["opt"] = optim.update_and_apply(
+        opt, cgrads, opt.init(cpu_params), cpu_params)
+    del grads, cgrads
+    dp, rel_dp = 0.0, 0.0
+    new, cnew = _flat_named(state["params"]), _flat_named(cstate["params"])
+    old = _flat_named(cpu_params)
+    for name, c in cnew.items():
+        d = new[name].cpu() - c
+        dp = max(dp, float(d.abs().max()))
+        rel_dp = max(rel_dp, float(d.norm() / (c - old[name]).norm()))
+    ev = trainer.make_eval_step(api)
+    after = float(ev(state, batch))
+    cafter = float(ev(cstate, cpu_batch))
+    after_rel = abs(after - cafter) / abs(cafter)
+    info = {"layers": LM_CARD_CPU_LAYERS, "loss_rel": loss_rel,
+            "loss_bound": LM_CARD_CPU_LOSS_REL, "grad_rel_max": grad_rel[
+                worst], "grad_rel_worst_leaf": worst,
+            "grad_bound": LM_CARD_CPU_GRAD_REL,
+            "params_after_step_max_abs_diff": dp,
+            "params_after_step_diff_over_update_max": rel_dp,
+            "loss_after_step": [after, cafter], "loss_after_step_rel":
+            after_rel, "loss_after_step_bound": LM_CARD_CPU_STEP_LOSS_REL}
+    check(loss_rel < LM_CARD_CPU_LOSS_REL, f"card vs CPU loss rel "
+          f"{loss_rel:.3g}")
+    check(grad_rel[worst] < LM_CARD_CPU_GRAD_REL, f"card vs CPU gradient "
+          f"{worst}: rel {grad_rel[worst]:.3g}")
+    # the first adam step moves an element by lr |mh / (sqrt(vh) + eps)|
+    # <= lr besides the weight decay, which both devices apply to the same
+    # params: they differ by at most 2 lr (a vanishing gradient whose sign
+    # differs), plus rounding
+    check(dp <= 2 * LM_LR + 1e-6, f"params after one step differ by {dp}")
+    check(after_rel < LM_CARD_CPU_STEP_LOSS_REL, f"loss after one step: "
+          f"card {after} vs CPU {cafter} (rel {after_rel:.3g})")
+    del state, cstate, params, cpu_params
+    torch.cuda.empty_cache()
+    log(f"phase 16 (e) card vs CPU (f32, full width, {LM_CARD_CPU_LAYERS} "
+        f"layers, B=2, S=64): loss rel {loss_rel:.3g}, worst gradient leaf "
+        f"{worst} rel {grad_rel[worst]:.3g}; after one adamw step params "
+        f"max |diff| {dp:.3g} ({rel_dp:.3g} of the update), loss rel "
+        f"{after_rel:.3g}")
+    return info
+
+
+def _flat_named(tree, prefix=""):
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat_named(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _lm_train_ckpt(dev):
+    """(f) --ckpt-dir/--ckpt-every 5 for 10 steps at full width cut to 2
+    layers, then --resume for 5 more: the restored state equals the saved
+    one bit for bit, and the resumed run's first loss equals a step of the
+    saved state in process. The launcher's checkpoint times: the memory
+    tier (the reference's tree stacked on the host, then copied), the disk
+    persist, the restore onto the card."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.flash_checkpoint import FlashCheckpoint
+    from repro_torch.train import state_tree, trainer
+    tmp = Path(tempfile.mkdtemp(prefix="lm_ckpt_", dir=ROOT / "build"))
+    try:
+        ck = str(tmp / "run")
+        argv = LM_TRAIN_ARGV + ["--layers", str(LM_CKPT_LAYERS),
+                                "--ckpt-dir", ck, "--ckpt-every", "5"]
+        first, _ = _driven(argv + ["--steps", "10"], ())
+        check(sorted(os.listdir(ck)) == ["ckpt_000000000005",
+                                         "ckpt_000000000010"],
+              f"blobs {sorted(os.listdir(ck))}")
+        cfg, api, opt = first.cfg, first.api, first.opt
+        disk = FlashCheckpoint(ck)
+        restored, _ = disk.restore(state_tree.lm_like_tree(api, opt), 10)
+        restored = state_tree.lm_from_tree(restored, cfg, dev)
+        saved, back = _flat_named(first.state), _flat_named(restored)
+        check(set(saved) == set(back), "restored leaves differ")
+        for k, v in saved.items():
+            same = torch.equal(back[k], v) and back[k].dtype == v.dtype \
+                if torch.is_tensor(v) else back[k] == v
+            check(same, f"restored leaf {k} differs from the saved one")
+        del restored, back
+        resumed, _ = _driven(argv + ["--steps", "5", "--resume"], ())
+        check(resumed.restored_step == 10 and resumed.state["step"] == 15,
+              f"resumed from {resumed.restored_step} to "
+              f"{resumed.state['step']}")
+        batch = _lm_batch(cfg, dev, 8, 64)            # samples 0-7 again
+        _, m = trainer.make_train_step(api, opt, remat=True)(first.state,
+                                                             batch)
+        check(float(m["loss"]) == resumed.losses[0], f"resumed first loss "
+              f"{resumed.losses[0]} vs in process {float(m['loss'])}")
+        n_bytes = sum(v.numel() * v.element_size()
+                      for v in saved.values() if torch.is_tensor(v))
+        info = {"layers": LM_CKPT_LAYERS, "state_bytes": n_bytes,
+                "losses": first.losses, "resumed_losses": resumed.losses,
+                "memory_tier_s": first.ckpt_seconds["memory_tier"]
+                + resumed.ckpt_seconds["memory_tier"],
+                "persist_s": [first.ckpt_seconds["persist"],
+                              resumed.ckpt_seconds["persist"]],
+                "restore_disk_s": disk.last_restore_seconds,
+                "resume_onto_card_s": resumed.ckpt_seconds["restore"]}
+        del first, resumed, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 16 (f) checkpoint ({LM_CKPT_LAYERS} layers, "
+        f"{info['state_bytes'] / 1e9:.2f} GB): restored bit for bit, resumed "
+        f"first loss equal; memory tier "
+        f"{', '.join(f'{x * 1e3:.0f}' for x in info['memory_tier_s'])} ms, "
+        f"persist {', '.join(f'{x:.2f}' for x in info['persist_s'])} s, "
+        f"restore {info['restore_disk_s']:.2f} s from disk, resume onto the "
+        f"card {info['resume_onto_card_s']:.2f} s")
+    return info
+
+
+def phase_lm_train(report, dev):
+    """Phase 16: LM training on the card."""
+    t0 = time.perf_counter()
+    line = _lm_train_full(report, dev)
+    line["families"] = _lm_train_families(dev)
+    line["card_vs_cpu"] = _lm_train_card_cpu(dev)
+    line["checkpoint"] = _lm_train_ckpt(dev)
+    line["seconds"] = time.perf_counter() - t0
+    report["lm_train"] = line
+    log(f"phase 16 LM training: {line['seconds']:.1f} s")
+    return line
+
+
 def main() -> int:
     try:
         import torch
@@ -2557,6 +2968,8 @@ def main() -> int:
         sim_line = phase_sim(report, selfheal_timings)
         torch.cuda.empty_cache()
         zoo_line = phase_zoo(report, dev)
+        torch.cuda.empty_cache()
+        lm_train_line = phase_lm_train(report, dev)
         for entry in kernels:
             name = entry["name"].split()[1]
             if name in selfheal_counts and name in (
@@ -2565,6 +2978,11 @@ def main() -> int:
                 entry["launches_selfheal"] = selfheal_counts[name]
             if name == "fused_embedding_bag":
                 entry["launches_lifecycle"] = lifecycle_line["launches"][name]
+            if name == "flash_attention":
+                entry["launches_lm_train"] = {
+                    "train_step": lm_train_line["launcher"]["launches"][name]
+                    // LM_TRAIN_STEPS,
+                    "eval": lm_train_line["eval"]["launches"][name]}
             if name in ("flash_attention", "decode_attention"):
                 entry["launches_lm_zoo"] = _zoo_launches(zoo_line, name)
                 entry["max_abs_err_lm_zoo"] = zoo_line["max_abs_err"][name]
@@ -2592,6 +3010,7 @@ def main() -> int:
     print(json.dumps({"lifecycle": lifecycle_line}))
     print(json.dumps({"sim": sim_line}))
     print(json.dumps({"lm_zoo": zoo_line}))
+    print(json.dumps({"lm_train": lm_train_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,17 +93,34 @@ def _leaves_with_path(tree, path=()) -> Iterator[Tuple[Tuple[Any, ...], Any]]:
         yield path, tree
 
 
+# A bfloat16 leaf lies on the host and on disk as its raw bits in a 2-byte
+# void array: numpy has no bfloat16, and that is what the reference's
+# ``np.savez`` writes (and ``np.load`` gives back) for its ml_dtypes
+# bfloat16 arrays. The manifest names it "bfloat16", as the reference's does.
+BF16_HOST = np.dtype("V2")
+
+
 def _host_copy(leaf) -> np.ndarray:
     """A host numpy array that shares no storage with ``leaf``."""
     if torch.is_tensor(leaf):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(BF16_HOST)
+        return host.numpy()
     return np.array(leaf, copy=True)
 
 
-def _np_dtype(dtype) -> np.dtype:
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype a leaf of torch or numpy ``dtype`` has on the host."""
+    if dtype == torch.bfloat16:
+        return BF16_HOST
     if isinstance(dtype, torch.dtype):
         return torch.empty((), dtype=dtype).numpy().dtype
     return np.dtype(dtype)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_HOST else str(arr.dtype)
 
 
 def _flatten(state) -> Dict[str, np.ndarray]:
@@ -138,14 +155,15 @@ def _unflatten(like, flat: Dict[str, np.ndarray], *,
         if key not in flat:
             if key not in optional_leaves:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            return np.zeros(tuple(leaf.shape), _np_dtype(leaf.dtype))
+            return np.zeros(tuple(leaf.shape), host_dtype(leaf.dtype))
         return flat[key]
 
     return _rebuild(like, fill)
 
 
 def _leaf_crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+    """CRC32 of the leaf's bytes, read in place (no copy)."""
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 class FlashCheckpoint:
@@ -237,7 +255,7 @@ class FlashCheckpoint:
         manifest = {
             "format": _FORMAT, "step": int(step),
             "leaves": {k: {"crc32": _leaf_crc(v),
-                           "shape": list(v.shape), "dtype": str(v.dtype)}
+                           "shape": list(v.shape), "dtype": _dtype_name(v)}
                        for k, v in flat.items()},
         }
         with open(os.path.join(tmp, _MANIFEST_FILE), "w") as f:

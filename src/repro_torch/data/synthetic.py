@@ -1,10 +1,10 @@
 """Deterministic synthetic Criteo-like batches, addressed by sample index.
 
 Port of ``criteo_batch``, ``zipf_indices``, ``_rng_for``, ``RowFreqCounter``
-and ``estimate_row_freq`` from ``repro/data/synthetic.py``. They are numpy,
-and their bytes are identical to the reference's: every sample is a pure
-function of (seed, sample index), so the two packages train on the same
-data. ``lm_batch`` comes with LM training.
+``estimate_row_freq`` and ``lm_batch`` from ``repro/data/synthetic.py``.
+They are numpy, and their bytes are identical to the reference's: every
+sample is a pure function of (seed, sample index), so the two packages
+train on the same data.
 """
 from __future__ import annotations
 
@@ -113,3 +113,19 @@ def criteo_batch(cfg: DLRMConfig, seed: int, indices: np.ndarray,
         p = 1.0 / (1.0 + np.exp(-logit))
         label[i] = float(rng.random() < p)
     return {"dense": dense, "sparse": sparse.astype(np.int32), "label": label}
+
+
+# --- LM token streams -------------------------------------------------------
+def lm_batch(seed: int, indices: np.ndarray, seq_len: int,
+             vocab_size: int) -> Dict[str, np.ndarray]:
+    """Markov-ish synthetic token stream; deterministic per sample index."""
+    B = len(indices)
+    tokens = np.empty((B, seq_len + 1), np.int64)
+    for i, idx in enumerate(np.asarray(indices)):
+        rng = _rng_for(seed, int(idx))
+        # piecewise-linear congruential stream => learnable local structure
+        start = rng.integers(0, vocab_size)
+        steps = rng.integers(1, 7, seq_len + 1)
+        tokens[i] = (start + np.cumsum(steps)) % vocab_size
+    return {"tokens": tokens[:, :-1].astype(np.int32),
+            "targets": tokens[:, 1:].astype(np.int32)}

@@ -25,7 +25,8 @@ slots, the serving engine's included) is the unsplit computation.
   no valid slot gives 0).
 
 q is bfloat16 or float32, the caches float32 (the serving engine's dtype)
-or bfloat16; the output has q's dtype.
+or bfloat16; the output has q's dtype. K5 has no backward: its CUDA entry
+raises when grad mode is on and an input requires grad.
 """
 from __future__ import annotations
 
@@ -114,6 +115,11 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _check(q, k_cache, v_cache, cache_pos, pos) -> None:
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "decode_attention: K5 has no backward, and an input requires "
+            "grad under grad mode")
     if not q.is_cuda:
         raise ValueError(f"decode_attention: q must be a CUDA tensor, got "
                          f"{q.device}")

@@ -1,7 +1,10 @@
 """K4: block-wise flash attention (causal / sliding-window / GQA / softcap).
 
 Port of ``repro/kernels/flash_attention.py``. Forward only, as there: the
-reference trains LMs through the chunked path, not through this kernel.
+reference trains LMs through the chunked path, not through this kernel,
+and so does the port (``models/transformer.full_attention``). The CUDA
+entry raises when grad mode is on and an input requires grad, so that a
+kernel output never silently drops a gradient.
 
 * CUDA tensors launch K4 by one of two routes, chosen by ``tc_route`` from
   the dtype and the shapes alone. bf16 with head dim 64 or 128 takes the
@@ -101,6 +104,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q, k, v, q_offset: int) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: K4 has no backward, and an input requires "
+            "grad under grad mode; training attention takes the chunked "
+            "route (models/transformer.full_attention)")
     if not q.is_cuda:
         raise ValueError(f"flash_attention: q must be a CUDA tensor, got "
                          f"{q.device}")

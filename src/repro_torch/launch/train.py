@@ -1,14 +1,35 @@
-"""DLRM training launcher (port of the DLRM modes of ``repro/launch/train.py``).
+"""Training launcher (port of ``repro/launch/train.py``): any ``--arch``.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
+        --steps 100 --batch 8 --seq 64 [--full] [--ckpt-dir DIR] [--resume] \\
+        [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch wide_deep \\
         --full --fused-update --padded-shards --steps 20 \\
         [--replan-every 10] [--ckpt-dir DIR --ckpt-every 5] [--resume] \\
         [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no GPU and no such
-request it raises, and it never falls back to the CPU. Batches are
-``criteo_batch(cfg, 11, ids)`` in the order of a single-worker
-``ShardDataLoader``, remapped through the job's ``EmbeddingRemapper``.
+request it raises, and it never falls back to the CPU.
+
+An LM arch (any of ``configs.registry.ARCHS``) runs ``train_lm``, the
+reference's LM mode: the reduced config unless ``--full``, adamw unless
+``--optimizer`` says otherwise, the step of ``trainer.make_train_step``
+with ``remat`` (donating the state, as a jitted step with donated buffers
+would), over ``lm_batch(0, ids, --seq, vocab)`` in the order of a
+single-worker ``ShardDataLoader``; an enc-dec arch gets zero f32 frames. It
+checkpoints the reference's LM tree (``state_tree.lm_to_tree``) every
+``--ckpt-every`` steps and at the end, keyed by the global step where the
+reference keys by the process's own step count (a resumed run's blobs
+would otherwise sort below the ones it resumed from); the final one is
+skipped when that step is already saved (the reference writes it twice).
+``--resume`` restores the newest one through ``elastic.resume_on_mesh``;
+the sample stream restarts at sample 0,
+as in the reference. The default ``--arch`` stays ``wide_deep``, which
+the port's DLRM callers rely on; the reference's is ``llama3.2-3b``.
+
+A DLRM arch runs the modes below. Batches are ``criteo_batch(cfg, 11,
+ids)`` in the order of a single-worker ``ShardDataLoader``, remapped
+through the job's ``EmbeddingRemapper``.
 
 The live re-planning loop is the reference's: a ``HotTableTracker`` folds
 every remapped batch into decayed rolling counts, and every
@@ -55,18 +76,20 @@ from typing import (Any, Callable, Dict, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, reduce_config
 from repro_torch.configs.dlrm_models import DLRMConfig, reduced_dlrm
-from repro_torch.configs.registry import DLRMS, get_dlrm
+from repro_torch.configs.registry import ARCHS, DLRMS, get_arch, get_dlrm
 from repro_torch.core.flash_checkpoint import FlashCheckpoint
 from repro_torch.core.sharding_service import (HotTableTracker,
                                                ReplanDecision,
                                                ShardingService)
 from repro_torch.data.pipeline import ShardDataLoader
-from repro_torch.data.synthetic import criteo_batch
+from repro_torch.data.synthetic import criteo_batch, lm_batch
+from repro_torch.models.registry import build_model
 from repro_torch.sharding.policy import (EmbeddingPlan, PaddedLayout,
                                          padded_layout_for_ranges,
                                          uniform_vocab_ranges)
-from repro_torch.train import optim, replan, trainer
+from repro_torch.train import elastic, optim, replan, state_tree, trainer
 
 DATA_SEED = 11
 
@@ -130,16 +153,23 @@ class TrainRun(NamedTuple):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="wide_deep", choices=sorted(DLRMS))
+    ap.add_argument("--arch", default="wide_deep",
+                    choices=sorted(DLRMS) + sorted(ARCHS))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=None,
-                    help="default: the config's batch")
+                    help="default: 8 for LMs, the config's batch for DLRMs")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="LM sequence length")
     ap.add_argument("--lr", type=float, default=3e-3)
-    ap.add_argument("--optimizer", default="adagrad",
+    ap.add_argument("--optimizer", default=None,
                     choices=["adam", "adamw", "adagrad", "sgd"],
-                    help="adagrad is the classic DLRM optimizer")
+                    help="default: adamw for LMs, adagrad (the classic DLRM "
+                         "optimizer) for DLRMs")
     ap.add_argument("--full", action="store_true",
                     help="use the full published config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM: cut the model to its first N layers (the "
+                         "width stays the config's)")
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--zipf-alpha", type=float, default=1.05,
                     help="power-law skew of the sparse-feature stream")
@@ -195,10 +225,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def dlrm_args(args) -> argparse.Namespace:
+    """A copy of the flags with the DLRM default optimizer (adagrad) filled
+    in where ``--optimizer`` was not given."""
+    return argparse.Namespace(**{**vars(args),
+                                 "optimizer": args.optimizer or "adagrad"})
+
+
 def dlrm_config(args) -> DLRMConfig:
     """The DLRM config of the launcher's flags (``--arch``, ``--full``,
     ``--zipf-alpha``, ``--hot-rows``, ``--batch``); refuses
-    ``--fused-update`` with an optimizer that has no row-update seam."""
+    ``--fused-update`` with an optimizer that has no row-update seam.
+    ``args`` has its optimizer filled in (``dlrm_args``)."""
     cfg = get_dlrm(args.arch)
     if not args.full:
         cfg = reduced_dlrm(cfg)
@@ -220,6 +258,7 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
     ``--resume`` in a fresh process continues on the stamped plan and
     layout however many re-plans came before.
     """
+    args = dlrm_args(args)
     device = resolve_device(args.device)
     cfg = dlrm_config(args)
     R = cfg.total_embedding_rows
@@ -357,6 +396,7 @@ def train_dlrm_supervised(args) -> SupervisedRun:
     from repro_torch.train.supervisor import (DLRMJob, Supervisor,
                                               SupervisorConfig)
 
+    args = dlrm_args(args)
     device = resolve_device(args.device)
     cfg = dlrm_config(args)
     plan = parse_chaos_spec(args.chaos or "")
@@ -419,6 +459,7 @@ def train_dlrm_chaos_proc(args) -> ChaosProcRun:
     from repro_torch.train.job_master import (JobMaster, JobMasterConfig,
                                               WorkerSpec)
 
+    args = dlrm_args(args)
     resolve_device(args.device)             # fail here, not in the worker
     workdir = args.workdir or tempfile.mkdtemp(prefix="chaos_proc_")
     spec = WorkerSpec(
@@ -456,11 +497,125 @@ def train_dlrm_chaos_proc(args) -> ChaosProcRun:
     return ChaosProcRun(spec, report)
 
 
+class LMRun(NamedTuple):
+    """What ``train_lm`` ran: the config, model, optimizer and final state;
+    per step the loss, the gradient norm and the seconds of the step
+    (synchronised on the card); the step the run resumed from (None for a
+    fresh start), the data path's exactly-once coverage, and the
+    checkpoint's seconds (``restore``: the resume onto the device;
+    ``memory_tier``: each snapshot's tree and memory tier; ``persist``: the
+    last disk write)."""
+    cfg: ModelConfig
+    api: Any
+    opt: optim.Optimizer
+    state: Dict[str, Any]
+    losses: List[float]
+    grad_norms: List[float]
+    step_seconds: List[float]
+    seconds: float
+    restored_step: Optional[int]
+    exactly_once: bool
+    covered: int
+    dup: int
+    ckpt_seconds: Dict[str, Any]
+
+
+def train_lm(args, *, state: Optional[Dict[str, Any]] = None) -> LMRun:
+    """LM training on ``args.device`` (the reference's LM mode).
+
+    ``state`` replaces the fresh train state (seed 0) when nothing is
+    restored; the run consumes it (the step donates its state)."""
+    if args.chaos or args.supervise or args.chaos_proc is not None:
+        raise SystemExit("--chaos, --supervise and --chaos-proc run DLRM "
+                         "jobs only")
+    device = resolve_device(args.device)
+    batch_size = args.batch or 8
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = reduce_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    api = build_model(cfg)
+    opt_name = args.optimizer or "adamw"
+    opt = optim.make(opt_name, args.lr)
+    print(f"arch={cfg.name} family={cfg.family} params={cfg.param_count():,} "
+          f"({'full' if args.full else 'reduced'}) device={device}")
+
+    ckpt = FlashCheckpoint(args.ckpt_dir) if args.ckpt_dir else None
+    restored_step = None
+    ckpt_s: Dict[str, Any] = {"memory_tier": []}
+    if args.resume and ckpt is not None and ckpt.latest_step() is not None:
+        t0 = time.perf_counter()
+        state, restored_step, _ = elastic.resume_on_mesh(
+            api, opt, opt_name, ckpt, None, None, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ckpt_s["restore"] = time.perf_counter() - t0
+        print(f"resumed from step {restored_step}")
+    if state is None:
+        state = trainer.make_train_state(
+            api, opt, torch.Generator(device=device).manual_seed(0))
+    step_fn = trainer.make_train_step(api, opt, remat=True,
+                                      grad_compress=args.grad_compress,
+                                      donate=True)
+    svc, loader = data_loader(
+        args.steps, batch_size,
+        lambda idx: lm_batch(0, idx, args.seq, cfg.vocab_size))
+
+    saved = [None]
+
+    def snapshot():
+        # keyed by the global step; a step already saved is not saved again
+        if saved[0] == state["step"]:
+            return
+        t0 = time.perf_counter()
+        ckpt.save(state_tree.lm_to_tree(state, cfg), state["step"])
+        ckpt_s["memory_tier"].append(time.perf_counter() - t0)
+        saved[0] = state["step"]
+
+    losses, gnorms, step_s = [], [], []
+    t0 = time.perf_counter()
+    n = 0
+    for raw in loader:
+        batch = to_device(raw, device)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(
+                (batch_size, cfg.n_frames, cfg.d_model), dtype=torch.float32,
+                device=device)
+        t_step = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t_step)
+        n += 1
+        if n % 20 == 0 or n == 1:
+            print(f"step {n:5d} loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f} "
+                  f"({n * batch_size / (time.perf_counter() - t0):.1f} "
+                  "samples/s)")
+        if ckpt is not None and n % args.ckpt_every == 0:
+            snapshot()
+    seconds = time.perf_counter() - t0
+    ok, covered, dup = svc.coverage(0)
+    print(f"done: {n} steps, exactly-once={ok} (covered={covered} dup={dup})")
+    if ckpt is not None:
+        snapshot()
+        ckpt.wait()
+        ckpt_s["persist"] = ckpt.last_persist_seconds
+        print(f"checkpointed at step {state['step']} -> {args.ckpt_dir}")
+    return LMRun(cfg, api, opt, state, losses, gnorms, step_s, seconds,
+                 restored_step, ok, covered, dup, ckpt_s)
+
+
 def main(argv: Optional[Sequence[str]] = None):
-    """Dispatch on the flags as the reference does: ``--chaos-proc`` runs
+    """Dispatch on the flags as the reference does: an LM arch runs
+    ``train_lm``; for a DLRM ``--chaos-proc`` runs
     ``train_dlrm_chaos_proc``, ``--chaos``/``--supervise``
     ``train_dlrm_supervised``, anything else ``train_dlrm``."""
     args = build_parser().parse_args(argv)
+    if args.arch not in DLRMS:
+        return train_lm(args)
     if args.chaos_proc is not None:
         return train_dlrm_chaos_proc(args)
     if args.chaos or args.supervise:

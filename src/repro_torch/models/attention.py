@@ -8,6 +8,16 @@ accumulate in f32, but the probabilities are cast to the value dtype before
 the PV product, so at bf16 the two paths differ by that rounding; at f32
 they agree to rounding.
 
+It is the port's training route for full-sequence attention
+(``models/transformer.full_attention``), as it is the reference's. When
+autograd records a call, each (q block x k block) step is recomputed in the
+backward (``torch.utils.checkpoint``) instead of keeping its scores and
+probabilities, so the backward holds O(S x chunk) per call, not O(S^2):
+without it, Whisper's 24-layer encoder at 8 x 1,500 frames (which the
+reference does not checkpoint) ran the H100 out of memory. The
+recomputation repeats the same operations, so values and gradients are the
+ones without it.
+
 Shapes: q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); GQA via Hq = Hkv * group.
 """
 from __future__ import annotations
@@ -15,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -74,7 +85,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     For ``window`` (local) attention each q chunk sees only the K/V band it
     can reach (``window + q_chunk`` keys), as in the reference; global
-    attention walks every K chunk.
+    attention walks every K chunk. A length that is no multiple of its
+    chunk ends in a shorter chunk, where the reference halves the chunk
+    until it divides the length: Whisper's 1,500 frames would walk 4-wide
+    chunks there, 140,625 block pairs per layer, which an eager loop cannot
+    afford. Either walk is exact attention; at f32 they agree to rounding,
+    at bf16 the probabilities' cast sees other block maxima.
     """
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
@@ -83,49 +99,51 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dt = q.dtype
     dev = q.device
     qg = q.reshape(B, Sq, Hkv, G, D)
+    block = _block_attn
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        def block(*args, **kw):
+            return checkpoint(_block_attn, *args, use_reentrant=False, **kw)
 
     q_chunk = min(q_chunk, Sq)
-    while Sq % q_chunk:
-        q_chunk //= 2
-    n_q = Sq // q_chunk
     outs = []
 
     if window is not None and Skv > (window + q_chunk):
         # local: a band of static length W + Cq per q chunk (causal only)
         assert causal, "windowed attention requires causal=True (SWA/local)"
         band = window + q_chunk
-        for qi in range(n_q):
-            q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk]
-            qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-            start = min(max(qi * q_chunk + q_chunk - band, 0), Skv - band)
+        for q0, cq in _chunks(Sq, q_chunk):
+            qpos = q_offset + q0 + torch.arange(cq, device=dev)
+            start = min(max(q0 + cq - band, 0), Skv - band)
             kpos = start + torch.arange(band, device=dev)
-            o, m, l = _block_attn(q_blk, k[:, start:start + band],
-                                  v[:, start:start + band], qpos, kpos,
-                                  causal=causal, window=window,
-                                  softcap=softcap, scale=scale)
+            o, m, l = block(qg[:, q0:q0 + cq], k[:, start:start + band],
+                            v[:, start:start + band], qpos, kpos,
+                            causal=causal, window=window, softcap=softcap,
+                            scale=scale)
             outs.append(_finalize(o, m, l, dt))
         return torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
 
     # global (or short-enough local): q blocks × k blocks
     k_chunk = min(k_chunk, Skv)
-    while Skv % k_chunk:
-        k_chunk //= 2
-    n_k = Skv // k_chunk
-    for qi in range(n_q):
-        q_blk = qg[:, qi * q_chunk:(qi + 1) * q_chunk]
-        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
-        acc = (torch.zeros((B, q_chunk, Hkv, G, D), device=dev),
-               torch.full((B, Hkv, G, q_chunk), NEG_INF, device=dev),
-               torch.zeros((B, Hkv, G, q_chunk), device=dev))
-        for ki in range(n_k):
-            sl = slice(ki * k_chunk, (ki + 1) * k_chunk)
-            kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
-            new = _block_attn(q_blk, k[:, sl], v[:, sl], qpos, kpos,
-                              causal=causal, window=window, softcap=softcap,
-                              scale=scale)
+    for q0, cq in _chunks(Sq, q_chunk):
+        q_blk = qg[:, q0:q0 + cq]
+        qpos = q_offset + q0 + torch.arange(cq, device=dev)
+        acc = (torch.zeros((B, cq, Hkv, G, D), device=dev),
+               torch.full((B, Hkv, G, cq), NEG_INF, device=dev),
+               torch.zeros((B, Hkv, G, cq), device=dev))
+        for k0, ck in _chunks(Skv, k_chunk):
+            kpos = k0 + torch.arange(ck, device=dev)
+            new = block(q_blk, k[:, k0:k0 + ck], v[:, k0:k0 + ck], qpos,
+                        kpos, causal=causal, window=window, softcap=softcap,
+                        scale=scale)
             acc = _merge(acc, new)
         outs.append(_finalize(*acc, dt))
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, D)
+
+
+def _chunks(n: int, chunk: int):
+    """(start, size) of consecutive chunks of ``chunk`` covering ``n``; the
+    last one is shorter when ``chunk`` does not divide ``n``."""
+    return [(s, min(chunk, n - s)) for s in range(0, n, chunk)]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

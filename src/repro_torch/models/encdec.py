@@ -3,10 +3,14 @@
 Port of ``repro/models/encdec.py``. The audio frontend is a stub, as
 there: the encoder takes precomputed frame embeddings (B, n_frames,
 d_model). Sinusoidal absolute positions; bidirectional encoder
-self-attention (K4, non-causal); a decoder with causal self-attention (K4
-in the teacher-forced pass, K5 when decoding) and cross-attention to the
-encoder states (K4, non-causal, against all ``n_frames`` keys: ``Sq = S``
-teacher-forced, ``Sq = 1`` per decode step).
+self-attention (non-causal); a decoder with causal self-attention
+(teacher-forced, or K5 when decoding) and cross-attention to the encoder
+states (non-causal, against all ``n_frames`` keys: ``Sq = S``
+teacher-forced, ``Sq = 1`` per decode step). Full-sequence attention goes
+through ``transformer.full_attention``: the chunked training route when
+autograd records it, K4 otherwise. ``remat=True`` recomputes each decoder
+layer in the backward, as the reference checkpoints its decoder's scan
+body; the encoder is not wrapped, as there.
 
 Differences from the reference, all of form, none of result:
 
@@ -25,13 +29,14 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig, reduce_config
-from repro_torch.kernels import ops
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import dense_init, dtype_of, pad_vocab, rms_norm
 from repro_torch.models.transformer import (
-    _heads, _leaf_names, _out_proj, _zip_leaves, attn_apply, attn_decode,
-    init_attn,
+    _heads, _leaf_names, _map_leaves, _out_proj, _stack_leaves, _zip_leaves,
+    attn_apply, attn_decode, full_attention, init_attn,
 )
 
 Params = Dict[str, Any]
@@ -79,57 +84,84 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
+_LAYERS = (("enc", "encoder_layers", _init_enc_layer),
+           ("dec", "num_layers", _init_dec_layer))
+
+
+def unstack_params(cfg: ModelConfig, tree: Mapping[str, Any]) -> Params:
+    """The reference's ``init_encdec`` tree (``enc`` and ``dec`` stacked
+    over their layers) as this package's structure, leaves picked but not
+    converted. Any tree of that structure works (adam moments too). Raises
+    if the tree does not hold exactly the parameters of ``cfg``."""
+    top = {"embed", "enc_norm", "final_norm", "enc", "dec"}
+    if set(tree) != top:
+        raise ValueError(f"unstack_params: top-level keys {sorted(tree)}"
+                         f" do not match {sorted(top)}")
+    out: Params = {k: tree[k] for k in ("embed", "enc_norm", "final_norm")}
+    for key, n_attr, init in _LAYERS:
+        n = getattr(cfg, n_attr)
+        probe = _probe(cfg, init)
+        if _leaf_names(tree[key]) != _leaf_names(probe):
+            raise ValueError(f"unstack_params: {key} has leaves "
+                             f"{_leaf_names(tree[key])}, expected "
+                             f"{_leaf_names(probe)}")
+
+        def pick(a, i, key=key, n=n):
+            if a.ndim == 0 or a.shape[0] != n:
+                raise ValueError(f"unstack_params: {key} leaf of shape "
+                                 f"{tuple(a.shape)} is not stacked over {n} "
+                                 "layers")
+            return a[i]
+        out[key] = [_zip_leaves(lambda a, _t, i=i: pick(a, i), tree[key],
+                                probe) for i in range(n)]
+    return out
+
+
+def stack_params(cfg: ModelConfig, params: Params, stack) -> Params:
+    """The inverse of ``unstack_params``: ``enc`` and ``dec`` stacked over
+    their layers by ``stack(list of leaves)``; other leaves as they are."""
+    del cfg
+    out = {k: v for k, v in params.items() if k not in ("enc", "dec")}
+    for key, _, _ in _LAYERS:
+        out[key] = _stack_leaves(stack, params[key])
+    return out
+
+
+def _probe(cfg: ModelConfig, init) -> Params:
+    """A tiny layer of ``cfg``'s structure in its param dtype (names and
+    dtypes only)."""
+    return init(reduce_config(cfg), torch.Generator().manual_seed(0),
+                dtype_of(cfg.param_dtype))
+
+
 def params_from_jax(cfg: ModelConfig, np_tree: Mapping[str, Any],
                     device) -> Params:
     """The reference's ``init_encdec`` tree (numpy leaves; ``enc`` and
     ``dec`` stacked over their layers) as this package's params on
-    ``device``, in ``cfg.param_dtype``. Raises if the tree does not hold
-    exactly the parameters of ``cfg``."""
+    ``device``, in ``cfg.param_dtype``. Unstacked by ``unstack_params``,
+    which raises if the tree does not hold exactly the parameters of
+    ``cfg``."""
     dtype = dtype_of(cfg.param_dtype)
-    top = {"embed", "enc_norm", "final_norm", "enc", "dec"}
-    if set(np_tree) != top:
-        raise ValueError(f"params_from_jax: top-level keys {sorted(np_tree)}"
-                         f" do not match {sorted(top)}")
+    tree = unstack_params(cfg, _map_leaves(np.asarray, np_tree))
 
-    def conv(leaf, dt=dtype):
+    def conv(leaf):
         return torch.tensor(np.asarray(leaf, np.float32),
-                            device=device).to(dt)
+                            device=device).to(dtype)
 
-    probe_cfg = reduce_config(cfg)
-    probe_gen = torch.Generator().manual_seed(0)
-    out: Params = {k: conv(np_tree[k]) for k in ("embed", "enc_norm",
-                                                 "final_norm")}
-    for key, n, init in (("enc", cfg.encoder_layers, _init_enc_layer),
-                         ("dec", cfg.num_layers, _init_dec_layer)):
-        probe = init(probe_cfg, probe_gen, dtype)
-        if _leaf_names(np_tree[key]) != _leaf_names(probe):
-            raise ValueError(f"params_from_jax: {key} has leaves "
-                             f"{_leaf_names(np_tree[key])}, expected "
-                             f"{_leaf_names(probe)}")
-
-        def pick(a, i, key=key, n=n):
-            a = np.asarray(a)
-            if a.ndim == 0 or a.shape[0] != n:
-                raise ValueError(f"params_from_jax: {key} leaf of shape "
-                                 f"{a.shape} is not stacked over {n} layers")
-            return a[i]
-        out[key] = [_zip_leaves(lambda a, t, i=i: conv(pick(a, i), t.dtype),
-                                np_tree[key], probe) for i in range(n)]
-    return out
+    return _map_leaves(conv, tree)
 
 
 # --- attention helpers ----------------------------------------------------------
 def _cross_attn(p: Params, x: torch.Tensor,
                 kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """x (B, S, d) queries; kv = (k, v) precomputed (B, F, K, Dh); K4
-    non-causal over all F keys."""
+    """x (B, S, d) queries; kv = (k, v) precomputed (B, F, K, Dh);
+    non-causal over all F keys, by ``full_attention``."""
     k, v = kv
     dt = x.dtype
     q = _heads(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    out = ops.flash_attention(q, k.to(dt), v.to(dt), causal=False,
-                              window=None)
+    out = full_attention(q, k.to(dt), v.to(dt), causal=False, window=None)
     return _out_proj(p, out)
 
 
@@ -162,32 +194,41 @@ def _logits(params: Params, x: torch.Tensor, cfg: ModelConfig):
     return x @ params["embed"].T.to(x.dtype)
 
 
+def _dec_layer(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn_apply(lp["attn"], h, cfg, "global", causal=True)
+    h = rms_norm(x, lp["lnx"], cfg.norm_eps)
+    x = x + _cross_attn(lp["cross"], h, cross_kv(lp["cross"], enc_out))
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_mod.mlp_block(lp["mlp"], h, cfg)
+
+
 def decode_full(params: Params, enc_out: torch.Tensor, tokens: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder pass. tokens (B, S) -> logits (B, S, Vp)."""
     dt = dtype_of(cfg.compute_dtype)
     x = params["embed"][tokens.long()].to(dt)
     x = x + sinusoid_positions(tokens.shape[1], cfg.d_model,
                                device=x.device).to(dt)
     for lp in params["dec"]:
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn_apply(lp["attn"], h, cfg, "global", causal=True)
-        h = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        x = x + _cross_attn(lp["cross"], h, cross_kv(lp["cross"], enc_out))
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_mod.mlp_block(lp["mlp"], h, cfg)
+        if remat:
+            x = checkpoint(_dec_layer, lp, x, enc_out, cfg,
+                           use_reentrant=False)
+        else:
+            x = _dec_layer(lp, x, enc_out, cfg)
     return _logits(params, x, cfg)
 
 
 def forward_encdec(params: Params, batch: Mapping[str, torch.Tensor],
-                   cfg: ModelConfig) -> torch.Tensor:
+                   cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     enc_out = encode(params, batch["frames"], cfg)
-    return decode_full(params, enc_out, batch["tokens"], cfg)
+    return decode_full(params, enc_out, batch["tokens"], cfg, remat=remat)
 
 
 def encdec_loss(params: Params, batch: Mapping[str, torch.Tensor],
-                cfg: ModelConfig) -> torch.Tensor:
-    logits = forward_encdec(params, batch, cfg)
+                cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
+    logits = forward_encdec(params, batch, cfg, remat=remat)
     Vp = logits.shape[-1]
     mask = torch.arange(Vp, device=logits.device) < cfg.vocab_size
     logits = torch.where(mask, logits.float(), -1e30)

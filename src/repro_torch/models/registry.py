@@ -27,7 +27,7 @@ Spec = Tuple[Tuple[int, ...], torch.dtype]
 class ModelAPI:
     cfg: ModelConfig
     init: Callable[[torch.Generator], Any]
-    loss: Callable[..., torch.Tensor]          # (params, batch)
+    loss: Callable[..., torch.Tensor]          # (params, batch, remat=False)
     prefill: Callable[..., torch.Tensor]       # (params, batch) -> logits
     init_cache: Callable[..., Any]             # (batch, max_len, dtype, device)
     decode_step: Callable[..., Any]            # (params, cache, tokens)
@@ -64,7 +64,8 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: tf_mod.init_lm(cfg, gen),
-        loss=lambda params, batch: tf_mod.lm_loss(params, batch, cfg),
+        loss=lambda params, batch, remat=False: tf_mod.lm_loss(
+            params, batch, cfg, remat=remat),
         prefill=lambda params, batch: tf_mod.forward_lm(
             params, batch["tokens"], cfg)[0],
         init_cache=lambda batch, max_len, dtype, device:
@@ -91,7 +92,8 @@ def _build_encdec(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=lambda gen: encdec_mod.init_encdec(cfg, gen),
-        loss=lambda params, batch: encdec_mod.encdec_loss(params, batch, cfg),
+        loss=lambda params, batch, remat=False: encdec_mod.encdec_loss(
+            params, batch, cfg, remat=remat),
         prefill=lambda params, batch: encdec_mod.forward_encdec(
             params, batch, cfg),
         init_cache=lambda batch, max_len, dtype, device:

@@ -1,8 +1,8 @@
 """Decoder-only LM of every decoder family: dense, MoE, SSM, hybrid, VLM.
 
 Port of ``repro/models/transformer.py``. Layers are ``global`` and
-``local`` attention (full-sequence forward through K4, decoding through
-K5, by way of ``kernels/ops.py``), ``ssm`` (Mamba-2 SSD,
+``local`` attention (full-sequence forward through ``full_attention``,
+decoding through K5, by way of ``kernels/ops.py``), ``ssm`` (Mamba-2 SSD,
 ``models/ssm.py``) and ``recurrent`` (RG-LRU, ``models/rglru.py``); the
 MLP of an attention layer is the MoE block when the config has experts.
 
@@ -19,16 +19,29 @@ Differences from the reference, all of form, none of result:
   returns it, where the reference returns a new tree: a full-width cache
   is rewritten one slot per step instead of copied whole. The step is a
   host integer, so slot indices cost no device round trip.
+
+Full-sequence attention takes one of two routes, by a stated rule
+(``full_attention``): when autograd records it (grad mode on and q, k or v
+requires grad), the chunked path of ``models/attention.py`` with the
+reference's 1024-query and 1024-key chunks, which is the reference's
+``xla`` route and what the reference trains through (K4 has no backward,
+there or here); otherwise K4 (its plain version on the CPU). ``remat=True``
+wraps each pattern group in ``torch.utils.checkpoint``, as the reference
+wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, reduce_config
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels import ops
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -99,15 +112,42 @@ def _out_proj(p: Params, out: torch.Tensor) -> torch.Tensor:
     return y
 
 
+TRAIN_CHUNK = 1024     # the reference's q_chunk = k_chunk on its xla route
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``tensors``: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window, softcap: float = 0.0,
+                   q_offset: int = 0) -> torch.Tensor:
+    """Full-sequence attention. q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D).
+
+    The training route when autograd records it (``records_grad``): the
+    reference's chunked ``xla`` path (``attention.chunked_attention``,
+    1024-key chunks), on either device. Otherwise K4 (eval, prefill,
+    serving). K4 refuses inputs that require grad under grad mode, so a
+    kernel output never drops a gradient."""
+    if records_grad(q, k, v):
+        return attn_mod.chunked_attention(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_chunk=TRAIN_CHUNK, k_chunk=TRAIN_CHUNK, q_offset=q_offset)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+
+
 def attn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
                q_offset: int = 0, causal: bool = True) -> torch.Tensor:
-    """Full-sequence attention (train/prefill), through K4."""
+    """Full-sequence attention (train/prefill), by ``full_attention``."""
     S = x.shape[1]
     positions = q_offset + torch.arange(S, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, positions, kind)
     window = cfg.local_window if kind == "local" else None
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.logit_softcap, q_offset=q_offset)
+    out = full_attention(q, k, v, causal=causal, window=window,
+                         softcap=cfg.logit_softcap, q_offset=q_offset)
     return _out_proj(p, out)
 
 
@@ -257,66 +297,111 @@ def params_to(params: Params, device) -> Params:
     return _map_leaves(lambda t: t.to(device, copy=True), params)
 
 
+def unstack_params(cfg: ModelConfig, tree: Mapping[str, Any]) -> Params:
+    """The reference's ``init_lm`` tree as this package's structure, leaves
+    picked but not converted (numpy arrays stay numpy arrays).
+
+    The reference stacks position ``i`` of the layer pattern over the
+    ``n_groups`` pattern groups (``tree["pattern"][i]``, leading axis
+    ``n_groups``) and keeps the remainder layers unstacked
+    (``tree["rest"]``); this unstacks them into one entry per layer, in
+    ``cfg.layer_kinds`` order. Any tree of that structure works (the adam
+    moments of a checkpoint too). Raises if the tree does not hold exactly
+    the parameters of ``cfg``.
+    """
+    n_groups, pattern, rest = pattern_split(cfg)
+    top = {"embed", "final_norm", "pattern", "rest"}
+    if not cfg.tie_embeddings:
+        top.add("lm_head")
+    if set(tree) != top:
+        raise ValueError(f"unstack_params: top-level keys {sorted(tree)}"
+                         f" do not match {sorted(top)}")
+    if len(tree["pattern"]) != len(pattern) \
+            or len(tree["rest"]) != len(rest):
+        raise ValueError("unstack_params: the tree has "
+                         f"{len(tree['pattern'])} pattern positions and "
+                         f"{len(tree['rest'])} rest layers, {cfg.name} "
+                         f"has {len(pattern)} and {len(rest)}")
+    unstacked: List[Tuple[str, Mapping[str, Any]]] = []
+    for g in range(n_groups):
+        for i, kind in enumerate(pattern):
+            def pick(a, g=g, i=i):
+                if a.ndim == 0 or a.shape[0] != n_groups:
+                    raise ValueError(
+                        f"unstack_params: pattern[{i}] leaf of shape "
+                        f"{tuple(a.shape)} is not stacked over {n_groups} "
+                        "groups")
+                return a[g]
+            unstacked.append((kind, _map_leaves(pick, tree["pattern"][i])))
+    unstacked += list(zip(rest, tree["rest"]))
+    layers = []
+    for n, (kind, layer) in enumerate(unstacked):
+        want = _leaf_names(_layer_probe(cfg, kind))
+        if _leaf_names(layer) != want:
+            raise ValueError(f"unstack_params: layer {n} ({kind}) has "
+                             f"leaves {_leaf_names(layer)}, expected {want}")
+        layers.append(layer)
+    out: Params = {k: tree[k] for k in top - {"pattern", "rest"}}
+    out["layers"] = layers
+    return out
+
+
+def stack_params(cfg: ModelConfig, params: Params, stack) -> Params:
+    """The inverse of ``unstack_params``: the per-layer list as the
+    reference's ``pattern`` (position ``i`` of the pattern stacked over the
+    groups by ``stack(list of leaves)``) and ``rest``; other leaves as
+    they are."""
+    n_groups, pattern, rest = pattern_split(cfg)
+    if n_groups == 0:
+        raise ValueError(f"stack_params: {cfg.name} has no whole pattern "
+                         "group to stack")
+    P = len(pattern)
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["pattern"] = [_stack_leaves(stack, layers[i:n_groups * P:P])
+                      for i in range(P)]
+    out["rest"] = list(layers[n_groups * P:])
+    return out
+
+
+def _stack_leaves(stack, trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack_leaves(stack, [t[k] for t in trees])
+                for k in trees[0]}
+    return stack(trees)
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_probe(cfg: ModelConfig, kind: str) -> Params:
+    """A tiny layer of ``kind`` with ``cfg``'s structure, in its param
+    dtype: the leaf names and dtypes of the kind (from ``reduce_config``).
+    Read only."""
+    return init_layer(kind, reduce_config(cfg),
+                      torch.Generator().manual_seed(0),
+                      dtype_of(cfg.param_dtype))
+
+
 def params_from_jax(cfg: ModelConfig, np_tree: Mapping[str, Any],
                     device) -> Params:
     """The reference's ``init_lm`` tree (numpy leaves) as this package's
     params on ``device``, each leaf in the reference's dtype: ``cfg``'s
     param dtype, but f32 for the MoE router, the SSM's ``dt_bias``,
-    ``A_log`` and ``D`` and the RG-LRU's gates and ``lam``.
-
-    The reference stacks position ``i`` of the layer pattern over the
-    ``n_groups`` pattern groups (``np_tree["pattern"][i]``, leading axis
-    ``n_groups``) and keeps the remainder layers unstacked
-    (``np_tree["rest"]``); this unstacks them into one entry per layer, in
-    ``cfg.layer_kinds`` order. Raises if the tree does not hold exactly the
+    ``A_log`` and ``D`` and the RG-LRU's gates and ``lam``. Unstacked by
+    ``unstack_params``, which raises if the tree does not hold exactly the
     parameters of ``cfg``.
     """
-    n_groups, pattern, rest = pattern_split(cfg)
     dtype = dtype_of(cfg.param_dtype)
-    top = {"embed", "final_norm", "pattern", "rest"}
-    if not cfg.tie_embeddings:
-        top.add("lm_head")
-    if set(np_tree) != top:
-        raise ValueError(f"params_from_jax: top-level keys {sorted(np_tree)}"
-                         f" do not match {sorted(top)}")
-    if len(np_tree["pattern"]) != len(pattern) \
-            or len(np_tree["rest"]) != len(rest):
-        raise ValueError("params_from_jax: the tree has "
-                         f"{len(np_tree['pattern'])} pattern positions and "
-                         f"{len(np_tree['rest'])} rest layers, {cfg.name} "
-                         f"has {len(pattern)} and {len(rest)}")
+    tree = unstack_params(cfg, _map_leaves(np.asarray, np_tree))
 
     def conv(leaf, dt=dtype):
         return torch.tensor(np.asarray(leaf, np.float32),
                             device=device).to(dt)
 
-    # leaf names and dtypes of each kind, from a tiny layer of the same
-    # structure
-    probe_cfg = reduce_config(cfg)
-    probe_gen = torch.Generator().manual_seed(0)
-    unstacked: List[Tuple[str, Mapping[str, Any]]] = []
-    for g in range(n_groups):
-        for i, kind in enumerate(pattern):
-            def pick(a, g=g, i=i):
-                a = np.asarray(a)
-                if a.ndim == 0 or a.shape[0] != n_groups:
-                    raise ValueError(
-                        f"params_from_jax: pattern[{i}] leaf of shape "
-                        f"{a.shape} is not stacked over {n_groups} groups")
-                return a[g]
-            unstacked.append((kind, _map_leaves(pick, np_tree["pattern"][i])))
-    unstacked += list(zip(rest, np_tree["rest"]))
-    layers = []
-    for n, (kind, tree) in enumerate(unstacked):
-        probe = init_layer(kind, probe_cfg, probe_gen, dtype)
-        want = _leaf_names(probe)
-        if _leaf_names(tree) != want:
-            raise ValueError(f"params_from_jax: layer {n} ({kind}) has "
-                             f"leaves {_leaf_names(tree)}, expected {want}")
-        layers.append(_zip_leaves(lambda a, t: conv(a, t.dtype), tree,
-                                  probe))
-    out: Params = {k: conv(np_tree[k]) for k in top - {"pattern", "rest"}}
-    out["layers"] = layers
+    out: Params = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [
+        _zip_leaves(lambda a, t: conv(a, t.dtype), layer,
+                    _layer_probe(cfg, kind))
+        for layer, kind in zip(tree["layers"], cfg.layer_kinds)]
     return out
 
 
@@ -337,21 +422,41 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
-def forward_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, Vp), aux_loss)."""
-    x = embed_tokens(params, tokens, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in zip(params["layers"], cfg.layer_kinds):
+def _apply_layers(kinds, layers, x, aux, cfg: ModelConfig):
+    for p, kind in zip(layers, kinds):
         x, a = apply_layer(kind, p, x, cfg)
         aux = aux + a
+    return x, aux
+
+
+def forward_lm(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, Vp), aux_loss).
+
+    ``remat`` recomputes each pattern group's activations in the backward
+    (``checkpoint(use_reentrant=False)`` around the group, as the
+    reference's ``jax.checkpoint`` around its scan body); the remainder
+    layers are not wrapped."""
+    n_groups, pattern, rest = pattern_split(cfg)
+    P = len(pattern)
+    x = embed_tokens(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = params["layers"]
+    for g in range(n_groups):
+        group = layers[g * P:(g + 1) * P]
+        if remat:
+            x, aux = checkpoint(_apply_layers, pattern, group, x, aux, cfg,
+                                use_reentrant=False)
+        else:
+            x, aux = _apply_layers(pattern, group, x, aux, cfg)
+    x, aux = _apply_layers(rest, layers[n_groups * P:], x, aux, cfg)
     return unembed(params, x, cfg), aux
 
 
 def lm_loss(params: Params, batch: Mapping[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     """batch: {"tokens": (B,S), "targets": (B,S)} -> scalar mean xent."""
-    logits, aux = forward_lm(params, batch["tokens"], cfg)
+    logits, aux = forward_lm(params, batch["tokens"], cfg, remat=remat)
     Vp = logits.shape[-1]
     mask = torch.arange(Vp, device=logits.device) < cfg.vocab_size
     logits = torch.where(mask, logits.float(), -1e30)

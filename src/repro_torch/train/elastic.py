@@ -1,26 +1,46 @@
-"""Elastic resume of a DLRM job onto another row plan, layout or shard count.
+"""Elastic resume: an LM job onto a device, a DLRM job onto another row
+plan, layout or shard count.
 
-Port of the DLRM half of ``repro/train/elastic.py``. Checkpoints hold host
-arrays in the reference's schema (``train/state_tree.py``), so a job
-checkpointed with ``n_ps`` physically-unequal PS shards resumes onto a
-different shard count (or back to the flat pool) bit-exactly, optionally
-through a ``ReplanDecision``'s permutation. One GPU has no device mesh:
-``mesh`` must be None, and the reference's GSPMD pieces
+Port of ``repro/train/elastic.py``. Checkpoints hold host arrays in the
+reference's schema (``train/state_tree.py``). ``resume_on_mesh`` restores
+an LM train state; a DLRM job checkpointed with ``n_ps`` physically-unequal
+PS shards resumes onto a different shard count (or back to the flat pool)
+bit-exactly, optionally through a ``ReplanDecision``'s permutation. One GPU
+has no device mesh: ``mesh`` must be None, and the reference's GSPMD pieces
 (``state_shardings``, ``dlrm_state_shardings``) have no counterpart.
-``resume_on_mesh``, the LM half, comes with LM training.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.dlrm_models import DLRMConfig
 from repro_torch.core.flash_checkpoint import FlashCheckpoint
-from repro_torch.sharding.policy import (ShardingPolicy, make_dlrm_policy,
+from repro_torch.models.registry import ModelAPI
+from repro_torch.sharding.policy import (NULL_POLICY, ShardingPolicy,
+                                         make_dlrm_policy,
                                          padded_layout_for_ranges,
                                          uniform_vocab_ranges)
 from repro_torch.train import replan as replan_mod
 from repro_torch.train import state_tree
 from repro_torch.train.optim import Optimizer
+
+
+def resume_on_mesh(api: ModelAPI, optimizer: Optimizer, opt_name: str,
+                   ckpt: FlashCheckpoint, mesh, shape: ShapeConfig, *,
+                   device, step: Optional[int] = None
+                   ) -> Tuple[Dict[str, Any], int, ShardingPolicy]:
+    """Restore the newest (or ``step``'s) LM checkpoint onto ``device``:
+    ``(state, restored_step, policy)``, the policy being the reference's
+    for no mesh (it places nothing). ``mesh`` must be None."""
+    del opt_name, shape
+    if mesh is not None:
+        raise ValueError("resume_on_mesh: device meshes are GSPMD-only; the "
+                         "port places nothing by a mesh (mesh=None)")
+    tree, restored_step = ckpt.restore(
+        state_tree.lm_like_tree(api, optimizer), step)
+    return (state_tree.lm_from_tree(tree, api.cfg, device), restored_step,
+            NULL_POLICY)
 
 
 def save_for_elasticity(ckpt: FlashCheckpoint, state, step: int) -> None:

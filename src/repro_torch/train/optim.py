@@ -1,16 +1,27 @@
-"""Optimizers (adam/adamw/adagrad/sgd) as functions over dicts of tensors.
+"""Optimizers (adam/adamw/adagrad/sgd) as functions over trees of tensors.
 
 Port of ``repro/train/optim.py``. Not ``torch.optim`` classes: an
-``Optimizer`` is ``(init, update, update_rows, clip_norm)`` over the flat
-``{name: tensor}`` params of ``models.dlrm``, and keeps the reference's
-exact expressions (adagrad's ``eps`` outside the ``sqrt``; adam's bias
-correction from ``count``, with weight decay). Gradient trees are flat dicts
-whose leaves are tensors or ``SparseRowGrad``s; leaves are visited in sorted
-name order, which is the leaf order of the reference's nested tree.
+``Optimizer`` is ``(init, update, update_rows, clip_norm, apply)`` over a
+tree of dicts and lists whose leaves are tensors: the flat ``{name:
+tensor}`` params of ``models.dlrm`` or the nested params of the LMs
+(``{"embed", "layers": [...], ...}``). It keeps the reference's exact
+expressions (adagrad's ``eps`` outside the ``sqrt``; adam's bias
+correction from ``count``, with weight decay). Leaves are visited in the
+reference's ``jax.tree.leaves`` order: dict keys sorted, lists in order; a
+``SparseRowGrad`` leaf yields rows, then vals.
+
+Adam's ``apply`` updates and applies one leaf at a time: it clips that
+leaf, computes its ``m``, ``v``, bias-corrected moments and update, adds
+the update to the parameter and drops the temporaries before the next
+leaf, so no whole tree of ``mh``/``vh``/updates exists at once (at
+llama3.2-3b's 3.2 B parameters those are 26 GB each in f32). Each element
+sees the reference's operations in the reference's order, so the result is
+bit for bit that of ``update`` followed by ``apply_updates``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Iterator, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
@@ -27,11 +38,15 @@ class Optimizer(NamedTuple):
     new_leaf_state)`` with the per-leaf moment pools; shared scalars such as
     ``count`` are advanced by ``update``. ``clip_norm`` is this optimizer's
     default clip, applied once by the trainer over the joint tree.
+    ``apply(grads, state, params, donate=False)`` returns ``(new_params,
+    new_state)`` leaf by leaf (adam); ``update_and_apply`` falls back to
+    ``update`` + ``apply_updates`` where it is None.
     """
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
     update_rows: Optional[Callable[[Any, Any, Any, Any], Tuple[Any, Any]]] = None
     clip_norm: Optional[float] = None
+    apply: Optional[Callable[..., Tuple[Any, Any]]] = None
 
 
 class SparseRowGrad(NamedTuple):
@@ -50,46 +65,113 @@ class SparseRowGrad(NamedTuple):
         return scatter_rows(self.rows, self.vals, num_rows)
 
 
+# --- trees -------------------------------------------------------------------
 def _inexact(x) -> bool:
     return torch.is_tensor(x) and x.is_floating_point()
 
 
-def _leaves(tree) -> Iterator[Any]:
-    """Leaves of a flat dict tree in sorted name order (the reference's
-    ``jax.tree.leaves`` order); a ``SparseRowGrad`` yields rows, vals."""
-    for name in sorted(tree):
-        leaf = tree[name]
-        if isinstance(leaf, SparseRowGrad):
-            yield from leaf
-        else:
-            yield leaf
+def _is_named_tuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_leaves(tree) -> Iterator[Any]:
+    """Leaves in the reference's ``jax.tree.leaves`` order: dict keys
+    sorted, lists and tuples in order (a ``SparseRowGrad`` yields rows,
+    vals)."""
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *leaves of rest)`` over trees of ``tree``'s structure;
+    dicts keep ``tree``'s key order."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_named_tuple(tree):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _paths(tree, prefix: Tuple = ()) -> Iterator[Tuple]:
+    """Key paths of the leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (i,))
+    else:
+        yield prefix
+
+
+def _get(tree, path: Tuple, pop: bool = False):
+    """The leaf at ``path``; with ``pop`` its slot is set to None, so the
+    tree no longer holds it."""
+    for key in path[:-1]:
+        tree = tree[key]
+    leaf = tree[path[-1]]
+    if pop:
+        tree[path[-1]] = None
+    return leaf
+
+
+def _put(tree, path: Tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree[key]
+    tree[path[-1]] = leaf
+
+
+def _skeleton(tree):
+    """``tree``'s containers (as dicts and lists) with None leaves."""
+    if isinstance(tree, Mapping):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_skeleton(v) for v in tree]
+    return None
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s containers holding ``leaves`` in
+    ``tree_leaves`` order (the inverse of ``tree_leaves``)."""
+    out = _skeleton(like)
+    for path, leaf in zip(_paths(like), leaves):
+        _put(out, path, leaf)
+    return out
 
 
 def _map_inexact(fn, tree):
     """Apply ``fn`` to every floating leaf, keeping integer leaves as they are."""
-    out = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, SparseRowGrad):
-            out[name] = SparseRowGrad(leaf.rows, fn(leaf.vals))
-        else:
-            out[name] = fn(leaf) if _inexact(leaf) else leaf
-    return out
+    return tree_map(lambda x: fn(x) if _inexact(x) else x, tree)
 
 
-def _zeros_like(params) -> Dict[str, torch.Tensor]:
-    return {k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()}
+def _zeros_like(params):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def global_norm(tree) -> torch.Tensor:
     """L2 norm over every floating leaf (integer leaves carry no gradient)."""
-    leaves = [l for l in _leaves(tree) if _inexact(l)]
+    leaves = [l for l in tree_leaves(tree) if _inexact(l)]
     return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    scale, norm = _clip_scale(grads, max_norm)
     return _map_inexact(lambda g: g * scale.to(g.dtype), grads), norm
 
 
@@ -106,39 +188,66 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     ``master_weights=True`` disables ``update_rows``, as in the reference.
     """
     def init(params):
-        some = next(iter(params.values()))
+        some = next(tree_leaves(params))
         state = {"m": _zeros_like(params), "v": _zeros_like(params),
                  "count": torch.zeros((), dtype=torch.int32,
                                       device=some.device)}
         if master_weights:
-            state["master"] = {k: p.float() for k, p in params.items()}
+            state["master"] = tree_map(lambda p: p.float(), params)
         return state
 
-    def update(grads, state, params):
+    def run(grads, state, params, *, apply: bool, donate: bool):
+        """Leaf by leaf: (updates or new params, new state). ``donate``
+        empties each leaf's slot in ``grads``, ``params`` and ``state`` once
+        it is used, so that nothing but the caller's own references keeps
+        the old tensors alive."""
+        scale = None
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            scale, _ = _clip_scale(grads, clip_norm)
         count = state["count"] + 1
         tc = count.float()
-        m = {k: b1 * state["m"][k] + (1 - b1) * g.float()
-             for k, g in grads.items()}
-        v = {k: b2 * state["v"][k] + (1 - b2) * torch.square(g.float())
-             for k, g in grads.items()}
-        mh = {k: x / (1 - b1 ** tc) for k, x in m.items()}
-        vh = {k: x / (1 - b2 ** tc) for k, x in v.items()}
-        new_state = {"m": m, "v": v, "count": count}
+        bias1, bias2 = 1 - b1 ** tc, 1 - b2 ** tc
+        out, m_out, v_out = (_skeleton(params), _skeleton(params),
+                             _skeleton(params))
+        master_out = _skeleton(params) if master_weights else None
+        for path in list(_paths(params)):
+            g = _get(grads, path, donate)
+            p = _get(params, path, donate)
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            g32 = g.float()
+            del g
+            m = b1 * _get(state["m"], path, donate) + (1 - b1) * g32
+            v = b2 * _get(state["v"], path, donate) + \
+                (1 - b2) * torch.square(g32)
+            del g32
+            _put(m_out, path, m)
+            _put(v_out, path, v)
+            mh = m / bias1
+            vh = v / bias2
+            if master_weights:
+                w = _get(state["master"], path, donate)
+                new_master = w - lr * (mh / (torch.sqrt(vh) + eps)
+                                       + weight_decay * w)
+                del w
+                _put(master_out, path, new_master)
+                upd = new_master.to(p.dtype) - p
+            else:
+                upd = (-lr * (mh / (torch.sqrt(vh) + eps)
+                              + weight_decay * p.float())).to(p.dtype)
+            del mh, vh
+            _put(out, path, p + upd if apply else upd)
+            del p, upd
+        new_state = {"m": m_out, "v": v_out, "count": count}
         if master_weights:
-            new_master = {
-                k: w - lr * (mh[k] / (torch.sqrt(vh[k]) + eps)
-                             + weight_decay * w)
-                for k, w in state["master"].items()}
-            new_state["master"] = new_master
-            updates = {k: new_master[k].to(p.dtype) - p
-                       for k, p in params.items()}
-        else:
-            updates = {k: (-lr * (mh[k] / (torch.sqrt(vh[k]) + eps)
-                                  + weight_decay * p.float())).to(p.dtype)
-                       for k, p in params.items()}
-        return updates, new_state
+            new_state["master"] = master_out
+        return out, new_state
+
+    def update(grads, state, params):
+        return run(grads, state, params, apply=False, donate=False)
+
+    def apply(grads, state, params, donate: bool = False):
+        return run(grads, state, params, apply=True, donate=donate)
 
     def update_rows(rows, row_grads, state, params):
         # lazy (row-wise) adam: moments of untouched rows are NOT decayed;
@@ -152,7 +261,7 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     return Optimizer(init, update,
                      update_rows=None if master_weights else update_rows,
-                     clip_norm=clip_norm)
+                     clip_norm=clip_norm, apply=apply)
 
 
 def adamw(lr: float, *, weight_decay: float = 0.01, **kw) -> Optimizer:
@@ -168,11 +277,11 @@ def adagrad(lr: float, *, eps: float = 1e-10,
     def update(grads, state, params):
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
-        acc = {k: state["acc"][k] + torch.square(g.float())
-               for k, g in grads.items()}
-        updates = {k: (-lr * g.float() / (torch.sqrt(acc[k]) + eps)
-                       ).to(params[k].dtype)
-                   for k, g in grads.items()}
+        acc = tree_map(lambda a, g: a + torch.square(g.float()),
+                       state["acc"], grads)
+        updates = tree_map(
+            lambda g, a, p: (-lr * g.float() / (torch.sqrt(a) + eps)
+                             ).to(p.dtype), grads, acc, params)
         return updates, {"acc": acc}
 
     def update_rows(rows, row_grads, state, params):
@@ -198,18 +307,31 @@ def sgd(lr: float, *, momentum: float = 0.0,
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
         if momentum:
-            mom = {k: momentum * state["mom"][k] + g.float()
-                   for k, g in grads.items()}
-            updates = {k: (-lr * mom[k]).to(params[k].dtype) for k in mom}
+            mom = tree_map(lambda m, g: momentum * m + g.float(),
+                           state["mom"], grads)
+            updates = tree_map(lambda m, p: (-lr * m).to(p.dtype), mom,
+                               params)
             return updates, {"mom": mom}
-        updates = {k: (-lr * g).to(params[k].dtype) for k, g in grads.items()}
+        updates = tree_map(lambda g, p: (-lr * g).to(p.dtype), grads, params)
         return updates, state
 
     return Optimizer(init, update, clip_norm=clip_norm)
 
 
 def apply_updates(params, updates):
-    return {k: p + updates[k] for k, p in params.items()}
+    return tree_map(lambda p, u: p + u, params, updates)
+
+
+def update_and_apply(optimizer: Optimizer, grads, state, params, *,
+                     donate: bool = False):
+    """``(new_params, new_state)``: the optimizer's leaf-by-leaf ``apply``
+    where it has one (adam), else ``update`` + ``apply_updates``.
+    ``donate`` lets ``apply`` empty the leaf slots of ``grads``, ``params``
+    and ``state`` as it goes; the caller must not read them afterwards."""
+    if optimizer.apply is not None:
+        return optimizer.apply(grads, state, params, donate=donate)
+    updates, new_state = optimizer.update(grads, state, params)
+    return apply_updates(params, updates), new_state
 
 
 def make(name: str, lr: float, **kw) -> Optimizer:

@@ -1,4 +1,4 @@
-"""The DLRM train state as the reference's tree of named leaves, and back.
+"""Train states as the reference's trees of named leaves, and back.
 
 The port's train state is ``{"params": {name: tensor}, "opt": optimizer
 state, "step": int}`` with flat parameter names (``mlp.w0``, see
@@ -14,6 +14,19 @@ blob written by either package restores in the other:
 ``to_tree`` is what ``FlashCheckpoint.save`` flattens (the checkpoint copies
 every leaf to the host); ``from_tree`` copies a restored tree onto a device;
 ``like_tree`` is a restore template drawn from no generator (meta tensors).
+
+The LM train state (``trainer.make_train_state``) keeps one entry per
+layer (``params["layers"][l]``; ``params["enc"]``/``["dec"]`` for the
+enc-dec), the reference stacks them. ``lm_to_tree`` stacks the layers, and
+the adam moments that mirror them, into the reference's
+``['params']['pattern'][i]`` (leading axis ``n_groups``) and
+``['params']['rest'][j]`` (``enc``/``dec`` stacked over their layers),
+copying those leaves to the host; ``lm_from_tree`` unstacks with the models'
+own ``unstack_params`` (the one ``params_from_jax`` uses) and copies every
+leaf onto a device; ``lm_like_tree`` is the restore template, built under a
+fake-tensor mode so that it allocates nothing at full width. bfloat16
+leaves travel as their raw bits (``flash_checkpoint.BF16_HOST``), as the
+reference's ``np.savez`` writes them.
 """
 from __future__ import annotations
 
@@ -23,10 +36,14 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.dlrm_models import DLRMConfig
-from repro_torch.core.flash_checkpoint import LeafSpec
+from repro_torch.core.flash_checkpoint import BF16_HOST, LeafSpec, host_dtype
 from repro_torch.models import dlrm as dlrm_mod
-from repro_torch.train.optim import Optimizer
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.registry import ModelAPI
+from repro_torch.train.optim import Optimizer, tree_map
 
 
 def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -62,8 +79,13 @@ def to_tree(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def _tensor(leaf, device) -> torch.Tensor:
-    """A fresh tensor on ``device`` (never the restored array's storage)."""
-    return torch.tensor(np.asarray(leaf), device=device)
+    """A fresh tensor on ``device`` (never the restored array's storage);
+    a 2-byte void or ml_dtypes bfloat16 array becomes bfloat16."""
+    arr = np.asarray(leaf)
+    if arr.dtype == BF16_HOST or arr.dtype.name == "bfloat16":
+        bits = torch.tensor(np.ascontiguousarray(arr).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
 
 
 def from_tree(tree: Mapping[str, Any], device) -> Dict[str, Any]:
@@ -114,5 +136,66 @@ def like_tree(cfg: DLRMConfig, optimizer: Optimizer,
         dtype = x.dtype if isinstance(x, np.ndarray) else \
             torch.empty((), dtype=x.dtype).numpy().dtype
         return LeafSpec(tuple(x.shape), dtype)
+
+    return spec(tree)
+
+
+# --- LM families ---------------------------------------------------------------
+def _model_mod(cfg: ModelConfig):
+    return encdec_mod if cfg.family == "encdec" else tf_mod
+
+
+def _stack_on_host(leaves) -> torch.Tensor:
+    return torch.stack([t.detach().to("cpu") for t in leaves])
+
+
+def lm_to_tree(state: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's LM train state as the reference's tree: the layer lists
+    of the params and of every optimizer mirror stacked on the host (new
+    tensors); the other leaves as they are (not copied)."""
+    mod = _model_mod(cfg)
+
+    def stacked(tree):
+        return mod.stack_params(cfg, tree, _stack_on_host)
+
+    opt = {name: stacked(sub) if isinstance(sub, Mapping) else sub
+           for name, sub in state["opt"].items()}
+    return {"params": stacked(state["params"]), "opt": opt,
+            "step": np.asarray(state["step"], np.int32)}
+
+
+def lm_from_tree(tree: Mapping[str, Any], cfg: ModelConfig,
+                 device) -> Dict[str, Any]:
+    """The reference's LM train-state tree (numpy leaves) as the port's
+    train state on ``device``; every leaf is copied, in its own dtype."""
+    mod = _model_mod(cfg)
+
+    def unstacked(sub):
+        return tree_map(lambda a: _tensor(a, device),
+                        mod.unstack_params(cfg, sub))
+
+    opt = {name: unstacked(sub) if isinstance(sub, Mapping)
+           else _tensor(sub, device) for name, sub in tree["opt"].items()}
+    return {"params": unstacked(tree["params"]), "opt": opt,
+            "step": int(np.asarray(tree["step"]))}
+
+
+def lm_like_tree(api: ModelAPI, optimizer: Optimizer) -> Dict[str, Any]:
+    """Restore template of ``make_train_state(api, optimizer, ...)``: its
+    reference tree with a ``LeafSpec`` per leaf. Params and optimizer state
+    are built under ``FakeTensorMode`` (shapes and dtypes, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = api.init(torch.Generator())
+        tree = lm_to_tree({"params": params, "opt": optimizer.init(params),
+                           "step": 0}, api.cfg)
+
+    def spec(x):
+        if isinstance(x, Mapping):
+            return {k: spec(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [spec(v) for v in x]
+        return LeafSpec(tuple(x.shape), host_dtype(x.dtype))
 
     return spec(tree)

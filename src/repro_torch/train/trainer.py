@@ -1,9 +1,19 @@
-"""DLRM train-step construction (port of the DLRM half of
+"""Train-step construction: the LM step and the DLRM steps (port of
 ``repro/train/trainer.py``).
 
-A train state is ``{"params": {name: tensor}, "opt": optimizer state,
-"step": int}``. ``make_dlrm_train_step`` returns ``train_step(state, batch)
--> (state, metrics)``:
+A train state is ``{"params": params, "opt": optimizer state, "step":
+int}``. ``make_train_step`` builds the step of any ``ModelAPI`` (the LM
+families and the enc-dec), as the reference's: loss and gradients (pattern
+groups recomputed in the backward with ``remat``), optional bf16 gradient
+compression, the global norm, and the optimizer applied leaf by leaf
+(``optim.update_and_apply``), returning new tensors. Attention trains
+through the chunked route (``models/transformer.full_attention``).
+``make_eval_step`` is the loss without autograd, so attention takes K4.
+``train_state_specs`` (logical-axis specs of a device mesh) has no
+counterpart: one GPU has no mesh.
+
+``make_dlrm_train_step`` returns ``train_step(state, batch) ->
+(state, metrics)`` over the flat ``{name: tensor}`` DLRM params:
 
 * the dense step differentiates the whole loss (the embedding bag's
   backward scatters deduped rows into a dense pool gradient) and applies
@@ -24,8 +34,71 @@ import torch
 from repro_torch.configs.dlrm_models import DLRMConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import dlrm as dlrm_mod
+from repro_torch.models.registry import ModelAPI
 from repro_torch.train import optim as optim_mod
 from repro_torch.train.optim import Optimizer
+
+
+# --- LM families -----------------------------------------------------------
+def make_train_state(api: ModelAPI, optimizer: Optimizer,
+                     generator: torch.Generator) -> Dict[str, Any]:
+    """Fresh train state of ``api`` on the generator's device."""
+    params = api.init(generator)
+    return {"params": params, "opt": optimizer.init(params), "step": 0}
+
+
+def loss_and_grads(api: ModelAPI, params, batch, *, remat: bool = True):
+    """``(loss, grads)`` of ``api.loss`` at ``params``; ``grads`` has the
+    params' structure and dtypes. Every floating leaf must get a gradient
+    (a leaf the loss does not reach raises)."""
+    leaves = optim_mod.tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.profiler.record_function("train_step.forward_backward"):
+        loss = api.loss(leaves, batch, remat=remat)
+        grads = torch.autograd.grad(loss, list(optim_mod.tree_leaves(leaves)))
+    return loss.detach(), optim_mod.tree_unflatten(leaves, grads)
+
+
+def make_train_step(api: ModelAPI, optimizer: Optimizer, *,
+                    remat: bool = True, grad_compress: bool = False,
+                    donate: bool = False) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)`` with
+    metrics ``{"loss", "grad_norm"}`` (the norm before clipping).
+
+    ``donate=True`` consumes ``state``, like ``jax.jit``'s
+    ``donate_argnums``: the optimizer empties each leaf of the old params
+    and moments as soon as its new one exists and the step clears the old
+    state's dict, so the old and the new adam moments never coexist whole
+    (at llama3.2-3b that is 26 GB less at the peak). The caller must not
+    read the state it passed in."""
+    def train_step(state, batch):
+        loss, grads = loss_and_grads(api, state["params"], batch, remat=remat)
+        if grad_compress:
+            grads = optim_mod.compress_grads(grads)
+        gnorm = optim_mod.global_norm(grads)
+        with torch.profiler.record_function("train_step.optimizer"):
+            params, opt_state = optim_mod.update_and_apply(
+                optimizer, grads, state["opt"], state["params"],
+                donate=donate)
+        step = state["step"] + 1
+        if donate:
+            state.clear()
+        return ({"params": params, "opt": opt_state, "step": step},
+                {"loss": loss, "grad_norm": gnorm})
+
+    return train_step
+
+
+def make_eval_step(api: ModelAPI) -> Callable:
+    """``eval_step(state, batch) -> loss`` under ``torch.no_grad()``: no
+    recomputation, and full-sequence attention takes K4."""
+    def eval_step(state, batch):
+        with torch.no_grad():
+            return api.loss(state["params"], batch, remat=False)
+
+    return eval_step
+
+
+# --- DLRM --------------------------------------------------------------------
 
 
 def make_dlrm_train_state(cfg: DLRMConfig, optimizer: Optimizer,

@@ -34,6 +34,11 @@ serving engine gives the CPU's greedy tokens; so do the reduced MoE, SSM,
 hybrid and enc-dec models, forward and decode, with K4 and K5 launched
 once per attention layer and call.
 
+K4 and K5 refuse inputs that require grad under grad mode. A reduced LM
+train step (llama, whisper; f32, remat, adamw) on the card matches the
+CPU's for three steps and launches no kernel (attention trains on the
+chunked route); its eval step launches K4 once per attention call.
+
 The lifecycle example (``examples/elastic_dlrm_train_torch.py``) at a small
 config runs 151 steps on the card: K1 launches twice per executed step
 plus twice for the eval, and the exactly-once coverage, the step count and
@@ -674,6 +679,62 @@ def test_reduced_lm_on_card_matches_cpu(dev):
         return {r: c.tokens for r, c in eng.run().items()}
 
     assert serve(gparams) == serve(params)
+
+
+def test_k4_k5_refuse_inputs_that_require_grad(dev):
+    q = torch.randn((1, 64, 4, 64), device=dev, requires_grad=True)
+    k = torch.randn((1, 64, 2, 64), device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_cuda(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, k)
+    cache_pos = torch.arange(64, dtype=torch.int32, device=dev)[None]
+    pos = torch.full((1,), 63, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        da.decode_attention_cuda(q[:, :1], k, k, cache_pos, pos)
+    cuda_lib.reset_launches()
+    with torch.no_grad():                 # the same inputs without grad run
+        fa.flash_attention_cuda(q, k, k)
+        da.decode_attention_cuda(q[:, :1], k, k, cache_pos, pos)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert cuda_lib.LAUNCHES["decode_attention"] == 1
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "whisper-medium"])
+def test_reduced_lm_train_step_on_card_matches_cpu(dev, arch):
+    """Three adamw steps of the reduced model (f32, remat) on the card and
+    on the CPU from the same params and batches: losses and grad norms
+    within 1e-5, no kernel launched; the eval step launches K4 once per
+    attention call."""
+    from repro_torch.data.synthetic import lm_batch
+    cfg = reduce_config(get_arch(arch))
+    api = build_model(cfg)
+    opt = optim.adamw(3e-3)
+    params = api.init(torch.Generator().manual_seed(0))
+    states = {d: {"params": tf.params_to(params, d),
+                  "opt": opt.init(tf.params_to(params, d)), "step": 0}
+              for d in ("cpu", dev)}
+    step = trainer.make_train_step(api, opt, remat=True)
+    cuda_lib.reset_launches()
+    for i in range(3):
+        b = lm_batch(0, np.arange(2 * i, 2 * i + 2), 16, cfg.vocab_size)
+        if cfg.family == "encdec":
+            b["frames"] = np.random.default_rng(i).standard_normal(
+                (2, cfg.n_frames, cfg.d_model)).astype(np.float32)
+        metrics = {}
+        for d in ("cpu", dev):
+            states[d], metrics[d] = step(states[d], launch.to_device(b, d))
+        for key in ("loss", "grad_norm"):
+            got, want = float(metrics[dev][key]), float(metrics["cpu"][key])
+            assert abs(got - want) <= 1e-5 * abs(want), (i, key, got, want)
+    assert sum(cuda_lib.LAUNCHES.values()) == 0
+    ev = trainer.make_eval_step(api)(states[dev], launch.to_device(b, dev))
+    n_k4 = (cfg.encoder_layers + 2 * cfg.num_layers
+            if cfg.family == "encdec" else cfg.num_layers)
+    assert cuda_lib.LAUNCHES["flash_attention"] == n_k4
+    want = trainer.make_eval_step(api)(states["cpu"], launch.to_device(b,
+                                                                       "cpu"))
+    assert abs(float(ev) - float(want)) <= 1e-5 * abs(float(want))
 
 
 def _lifecycle_example():
