@@ -199,10 +199,36 @@ step):
     run's first loss equal to a step of the saved state in process; the
     memory tier, persist and restore times.
 
+The single-table bag, the batched-serving example and the cost tool, run
+last:
+
+17. (a) ``ops.embedding_bag`` (K1 with one table) on Wide&Deep's largest
+    table (870,963 rows) at D=16 and D=1, B=512, zipf 1.05 ids, n=4 (the
+    vector and wide routes) and n=3 (the generic route), sum/mean/max,
+    unweighted and weighted: one K1 launch per call (counts set to 0 just
+    before the 24 calls, read just after), each output bit for bit with
+    K1's plain version, the route asserted; timed at n=4 (unweighted sum)
+    as in phase 5, through the wrapper and alone, beside the plain
+    version, ``F.embedding_bag`` and the bytes bound. (b)
+    ``examples/serve_batched_torch.py`` for llama3.2-3b and mamba2-2.7b in
+    subprocesses with ``--device cuda`` and ``--device cpu``: each exits 0
+    and the card's tokens equal the CPU's; its ``serve`` in process on the
+    card, counted: llama launches K5 and nothing else, mamba2 nothing. (c)
+    ``repro_torch.launch.costs`` on full-width llama3.2-3b, on meta tensors
+    on the host: model FLOPs, the counted step FLOPs and the analytic HBM
+    bytes at phase 16's shape (B=8, S=64, remat), and the step's shares of
+    the bf16 dense peak and of the HBM bandwidth at phase 16's median step;
+    ``train_4k`` through the module's CLI. (d) the launcher's 5 fused adam
+    steps (phase 4's config), then phase 6's profile of that step: K1 and
+    K3 on both pools found by name, their device time per call.
+
 Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle``,
-``sim``, ``lm_zoo`` and ``lm_train`` JSON lines, the ``kernels`` JSON line
-(K1-K5; K1-K3 with their phase-13 launches under ``launches_selfheal``, K1
-with phase 14's under ``launches_lifecycle``, K4 and K5 with phase 15's per
+``sim``, ``lm_zoo``, ``lm_train`` and ``single_table`` JSON lines, the
+``kernels`` JSON line (K1-K5; K1-K3 with their phase-13 launches under
+``launches_selfheal``, K1 with phase 14's under ``launches_lifecycle`` and
+phase 17's under ``launches_single_table`` with their timings under
+``at_single_table``, K3 with its in-step time under
+``in_step_us_per_call``, K4 and K5 with phase 15's per
 model under ``launches_lm_zoo`` and their phase-15 timings under
 ``at_lm_zoo_shapes``, K4 with phase 16's per train step and per eval under
 ``launches_lm_train``), and last ``{"ok": true, "device": {...}}``. Full
@@ -839,10 +865,12 @@ PROFILED_KERNELS = {
 }
 
 
-def phase_profile(report, dev, run, n_steps=10):
-    """Where the fused adagrad step's time goes: ``torch.profiler`` over
-    ``n_steps`` steps with batches already on the card. Device time is the
-    sum of the CUDA kernel and copy events (one stream, so they do not
+def phase_profile(report, dev, run, n_steps=10, kernels=PROFILED_KERNELS,
+                  tag="phase 6", key="profile"):
+    """Where the fused step's time goes (phase 6: adagrad; phase 17 (d):
+    adam): ``torch.profiler`` over ``n_steps`` steps of ``run``'s step with
+    batches already on the card, ``kernels`` found by name. Device time is
+    the sum of the CUDA kernel and copy events (one stream, so they do not
     overlap); the idle share is 1 - device time / wall time, with the
     profiler's own host overhead included in the wall time."""
     import torch
@@ -867,19 +895,19 @@ def phase_profile(report, dev, run, n_steps=10):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     info, device = _device_summary(prof, wall_us, n_steps, top=10)
-    report["profile"] = info
-    check(device, "phase 6: torch.profiler showed no device events")
+    report[key] = info
+    check(device, f"{tag}: torch.profiler showed no device events")
     per_call = {}
-    for label, fragments in PROFILED_KERNELS.items():
+    for label, fragments in kernels.items():
         hits = [(us, c) for k, us, c in device
                 if all(f in k for f in fragments)]
-        check(hits, f"phase 6: {label} ({' + '.join(fragments)}) is not in "
+        check(hits, f"{tag}: {label} ({' + '.join(fragments)}) is not in "
               "the profiled step")
         calls = sum(c for _, c in hits)
         per_call[label] = {"us_per_call": sum(us for us, _ in hits) / calls,
                            "calls_per_step": calls / n_steps}
     info["kernel_us_per_call"] = per_call
-    log(f"phase 6 profile: {info['wall_ms_per_step']:.3f} ms/step wall "
+    log(f"{tag} profile: {info['wall_ms_per_step']:.3f} ms/step wall "
         f"(profiler on), {info['device_ms_per_step']:.3f} ms/step on the "
         f"device, idle share {info['device_idle_share']:.3f}, "
         f"{info['device_events_per_step']:.0f} device events/step")
@@ -2918,6 +2946,313 @@ def phase_lm_train(report, dev):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the single-table embedding bag on K1, the batched-serving
+# example, the one-card cost tool, and K3 inside the fused adam step
+# ---------------------------------------------------------------------------
+BAG_B = 512                       # (a): Wide&Deep's batch, one table
+BAG_N = 4                         # its multi_hot: K1's vector / wide routes
+BAG_N_GENERIC = 3                 # any other n: the generic route
+BAG_ALPHA = 1.05
+SERVE_ARCHS = ("llama3.2-3b", "mamba2-2.7b")
+COST_TRAIN = (8, 64)              # (c): phase 16's train shape (B, S)
+COST_CELL = "train_4k"
+# the adam step's kernels, by fragments of the names the profiler gives them
+PROFILED_ADAM_KERNELS = {
+    "K1 D=16": ("bag_vec16_kernel",),
+    "K1 D=1": ("bag_wide_kernel",),
+    "K3 D=16": ("rows_vec16_kernel", "AdamOp"),
+    "K3 D=1": ("rows_wide_kernel", "AdamOp"),
+}
+
+
+def _bag_inputs(dev, R, n, seed):
+    """(BAG_B, n) zipf(BAG_ALPHA) int32 ids over ``R`` rows and weights in
+    [0.5, 1.5), on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import zipf_indices
+    rng = np.random.default_rng(seed)
+    idx = zipf_indices(rng, R, (BAG_B, n), BAG_ALPHA).astype(np.int32)
+    w = rng.random((BAG_B, n)).astype(np.float32) + 0.5
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+
+
+def _bag_cases(dev):
+    """(a) ``ops.embedding_bag`` on the card: the largest Wide&Deep table
+    at D=16 and D=1, n=4 (vector / wide route) and n=3 (generic route),
+    sum/mean/max, unweighted and weighted. The counts are set to 0 just
+    before the calls and read just after: one K1 launch per call. Each
+    output is then held to K1's plain version on the same inputs, bit for
+    bit (K1_ULP)."""
+    import torch
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.kernels import fused_embedding as fe
+    from repro_torch.sharding.policy import EmbeddingPlan
+    R = max(_full_cfg().table_rows)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tables = {D: torch.randn((R, D), generator=gen, device=dev)
+              for D in (16, 1)}
+    inputs = {n: _bag_inputs(dev, R, n, seed=n) for n in (BAG_N,
+                                                          BAG_N_GENERIC)}
+    cases = [(D, n, c, weighted) for D in (16, 1)
+             for n in (BAG_N, BAG_N_GENERIC) for c in ("sum", "mean", "max")
+             for weighted in (False, True)]
+    cuda_lib.reset_launches()
+    outs = []
+    for D, n, c, weighted in cases:
+        idx, w = inputs[n]
+        outs.append(ops.embedding_bag(tables[D], idx, w if weighted else None,
+                                      plan=EmbeddingPlan(combiner=c)))
+    torch.cuda.synchronize()
+    counts = dict(cuda_lib.LAUNCHES)
+    check(counts["fused_embedding_bag"] == len(cases) and sum(
+        counts.values()) == len(cases), f"phase 17 (a): {len(cases)} calls "
+          f"launched {counts}, want one K1 launch each")
+    max_ulp, max_err, routes = 0, 0.0, {}
+    for (D, n, c, weighted), got in zip(cases, outs):
+        idx, w = inputs[n]
+        enc = idx[:, None, :].contiguous()
+        ww = w[:, None, :].contiguous() if weighted else None
+        want = fe.embedding_bag_plain(tables[D], enc, ww, None, c)[:, 0]
+        tag = f"K1 single table D={D} n={n} {c} weighted={weighted}"
+        u = ulp_distance(got, want)
+        check(u <= K1_ULP, f"{tag}: {u} ULP > {K1_ULP}")
+        max_ulp = max(max_ulp, u)
+        max_err = max(max_err, float((got - want).abs().max()))
+        route = fe.bag_route(D, n, tables[D], enc, got, *(
+            [ww] if weighted else []))
+        want_route = ("vector" if D == 16 else "wide") if n == BAG_N \
+            else "generic"
+        check(route == want_route, f"{tag}: {route} route, want "
+              f"{want_route}")
+        routes[f"D={D} n={n}"] = route
+    return {"rows": R, "batch": BAG_B, "zipf_alpha": BAG_ALPHA,
+            "cases": len(cases), "launches": counts["fused_embedding_bag"],
+            "max_ulp": max_ulp, "ulp_bound": K1_ULP, "max_abs_err": max_err,
+            "routes": routes, "timing": _time_bag(dev, tables, inputs)}
+
+
+def _time_bag(dev, tables, inputs):
+    """K1 through ``ops.embedding_bag`` (unweighted sum, n=4) on both
+    widths, timed as in phase 5 beside the kernel alone, its plain version,
+    ``F.embedding_bag`` (one library call of the same function) and the
+    bytes bound: the distinct rows read, the ids and the output."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_embedding as fe
+    from repro_torch.sharding.policy import EmbeddingPlan
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    plan = EmbeddingPlan(combiner="sum")
+    idx, _ = inputs[BAG_N]
+    enc = idx[:, None, :].contiguous()
+    out = {}
+    for D, table in tables.items():
+        lib = F.embedding_bag(idx.long(), table, mode="sum")
+        ours = ops.embedding_bag(table, idx, plan=plan)
+        check(float((lib - ours).abs().max()) < 1e-5,
+              f"embedding_bag yardstick at D={D} computes another function")
+        w_ms = time_ms(lambda: ops.embedding_bag(table, idx, plan=plan),
+                       flush)
+        k_ms = time_ms(lambda: fe.embedding_bag_cuda(table, enc, None, None,
+                                                     "sum"), flush)
+        p_ms = time_ms(lambda: fe.embedding_bag_plain(table, enc, None, None,
+                                                      "sum"), flush)
+        l_ms = time_ms(lambda: F.embedding_bag(idx.long(), table,
+                                               mode="sum"), flush)
+        n_rows = int(torch.unique(idx).numel())
+        n_bytes = n_rows * D * 4 + idx.numel() * 4 + BAG_B * D * 4
+        b_ms, b_by = bound_ms(n_bytes, idx.numel() * D)
+        out[D] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                  "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "distinct_rows": n_rows, "bytes": n_bytes,
+                  "route": fe.bag_route(D, BAG_N, table, enc, ours)}
+    return out
+
+
+def _load_serve_example():
+    """``examples/serve_batched_torch.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / "serve_batched_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_batched_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_tokens(stdout):
+    """``{rid: tokens}`` from the example's ``  req i: [...]`` lines."""
+    out = {}
+    for line in stdout.splitlines():
+        if line.startswith("  req "):
+            rid, toks = line[len("  req "):].split(": ", 1)
+            out[int(rid)] = json.loads(toks)
+    return out
+
+
+def _serve_example(dev, procs):
+    """(b) the example as subprocesses (``procs``, already started) on the
+    card and on the CPU: each exits 0 and the card's
+    tokens equal the CPU's; then its ``serve`` in process on the card with
+    the counts set to 0 just before and read just after: llama launches K5
+    and nothing else, mamba2 nothing."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    ex = _load_serve_example()
+    info = {}
+    for arch in SERVE_ARCHS:
+        runs = {}
+        for device in ("cuda", "cpu"):
+            proc = procs[(arch, device)]
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"serve_batched_torch --arch {arch} "
+                  f"--device {device} exited {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+            runs[device] = _example_tokens(stdout)
+        check(runs["cuda"] == runs["cpu"] and runs["cuda"], f"{arch}: card "
+              f"tokens {runs['cuda']} != CPU tokens {runs['cpu']}")
+        cfg = ex.reduce_config(ex.get_arch(arch))
+        params = ex.tf.params_to(ex.build_model(cfg).init(
+            torch.Generator().manual_seed(ex.SEED)), dev)
+        reqs = ex.make_requests(cfg, 6)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        outs, steps = ex.serve(cfg, params, reqs, 3, dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(cuda_lib.LAUNCHES)
+        got = {rid: c.tokens for rid, c in outs.items()}
+        check(got == runs["cuda"], f"{arch}: in-process tokens differ from "
+              "the subprocess's")
+        if arch == "llama3.2-3b":
+            check(counts["decode_attention"] > 0 and sum(counts.values()) ==
+                  counts["decode_attention"], f"{arch} launched {counts}, "
+                  "want K5 only")
+        else:
+            check(sum(counts.values()) == 0, f"{arch} launched {counts}")
+        n_tok = sum(len(t) for t in got.values())
+        info[arch] = {"tokens": n_tok, "engine_steps": steps,
+                      "in_process_s": sec, "launches": counts,
+                      "card_equals_cpu": True}
+        log(f"phase 17 (b) {arch}: card tokens == CPU tokens ({n_tok} "
+            f"tokens, {steps} engine steps, {sec:.2f} s in process); "
+            f"launches {counts}")
+        del params
+    return info
+
+
+def _cost_tool(lm_train_line, cost_proc, smi):
+    """(c) the cost tool on full-width llama3.2-3b, on meta tensors on the
+    host: phase 16's train shape in process, ``train_4k`` through the CLI
+    (``cost_proc``); the step's shares of the bf16 dense peak and of the
+    HBM bandwidth at phase 16's measured median step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import costs
+    cfg = get_arch(LM_ARCH)
+    B, S = COST_TRAIN
+    shape = ShapeConfig("phase16", S, B, "train")
+    t0 = time.perf_counter()
+    flops = costs.step_flops(cfg, shape)
+    count_s = time.perf_counter() - t0
+    hbm = costs.analytic_hbm_bytes(cfg, shape, costs.param_bytes(cfg), flops)
+    mflops = costs.model_flops(cfg, shape)
+    step_ms = lm_train_line["launcher"]["median_step_ms_3_10"]
+    sec = step_ms / 1e3
+    b_ms, b_by = bound_ms(hbm["total"], flops, BF16_FLOP_PER_S)
+    info = {"arch": LM_ARCH, "batch": B, "seq": S, "model_flops": mflops,
+            "step_flops": flops, "count_s": count_s, "analytic_hbm": hbm,
+            "step_ms_phase16": step_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bf16_peak_share": flops / sec / BF16_FLOP_PER_S,
+            "hbm_share": hbm["total"] / sec / HBM_BYTES_PER_S,
+            "peaks": {"bf16_flop_per_s": BF16_FLOP_PER_S,
+                      "hbm_bytes_per_s": HBM_BYTES_PER_S}, "card": smi}
+    stdout, stderr = cost_proc.communicate(timeout=600)
+    check(cost_proc.returncode == 0, f"repro_torch.launch.costs exited "
+          f"{cost_proc.returncode}: {stderr[-2000:]}")
+    cell = json.loads(stdout.strip().splitlines()[-1])
+    check("error" not in cell and cell["step_flops"] > cell["model_flops"]
+          > 0, f"cost cell {cell}")
+    info[COST_CELL] = cell
+    log(f"phase 17 (c) {LM_ARCH} B={B} S={S}: {flops / 1e12:.4f} TFLOP "
+        f"counted (6·N·tokens {mflops / 1e12:.4f}; counted in "
+        f"{count_s:.1f} s on the host), HBM {hbm['total'] / 1e9:.2f} GB; at "
+        f"phase 16's {step_ms:.1f} ms: {info['bf16_peak_share']:.4f} of the "
+        f"bf16 peak, {info['hbm_share']:.4f} of the HBM bandwidth (bound "
+        f"{b_ms:.2f} ms by {b_by}; {smi})")
+    log(f"phase 17 (c) {LM_ARCH} {COST_CELL}: "
+        f"{cell['step_flops'] / 1e15:.4f} PFLOP counted, 6·N·tokens "
+        f"{cell['model_flops'] / 1e15:.4f}, HBM "
+        f"{cell['analytic_hbm']['total'] / 1e9:.1f} GB")
+    return info
+
+
+def _adam_profile(report, dev):
+    """(d) K3 inside the fused adam step: the launcher's 5 adam steps
+    (counts set to 0 before, read after), then phase 6's profile of that
+    step."""
+    log("phase 17 (d) slice: 5 steps, fused update, adam")
+    run, counts = _driven(SLICE_FLAGS + ["--fused-update", "--optimizer",
+                                         "adam", "--steps", "5"],
+                          ("fused_embedding_bag", "adam_row_update"))
+    info = phase_profile(report, dev, run, kernels=PROFILED_ADAM_KERNELS,
+                         tag="phase 17 (d)", key="profile_adam")
+    info["launches"] = counts
+    del run
+    return info
+
+
+def phase_single_table(report, dev, lm_train_line, smi):
+    """Phase 17: (a) the single-table bag on K1, (d) K3's profile inside
+    the adam step, (c) the cost tool, (b) the batched-serving example. The
+    cost CLI's subprocess (host only) starts first; the example's start
+    after (a) and (d), so that no other process uses the card while those
+    are timed, and run beside (c)'s count on the host."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cost_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.costs", "--arch", LM_ARCH,
+         "--shape", COST_CELL], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    procs = {}
+    try:
+        line = {"bag": _bag_cases(dev)}
+        bag = line["bag"]
+        for D, t in bag["timing"].items():
+            log(f"phase 17 (a) K1 single table D={D} ({t['route']} route, "
+                f"{bag['rows']:,} rows, B={BAG_B}, n={BAG_N}): kernel "
+                f"{t['ms'] * 1e3:.2f} us, through ops.embedding_bag "
+                f"{t['wrapper_ms'] * 1e3:.2f} us, plain "
+                f"{t['plain_ms'] * 1e3:.1f} us, F.embedding_bag "
+                f"{t['library_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.3f} us ({t['distinct_rows']} "
+                "distinct rows)")
+        log(f"phase 17 (a) {bag['cases']} single-table calls, "
+            f"{bag['launches']} K1 launches, max {bag['max_ulp']} ULP from "
+            f"the plain version (bound {K1_ULP}); routes {bag['routes']}")
+        line["profile_adam"] = _adam_profile(report, dev)
+        procs.update({(arch, device): subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" /
+                                 "serve_batched_torch.py"),
+             "--arch", arch, "--device", device], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for arch in SERVE_ARCHS for device in ("cuda", "cpu")})
+        line["costs"] = _cost_tool(lm_train_line, cost_proc, smi)
+        line["serve_example"] = _serve_example(dev, procs)
+    finally:
+        for p in list(procs.values()) + [cost_proc]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    line["seconds"] = time.perf_counter() - t0
+    report["single_table"] = line
+    log(f"phase 17: {line['seconds']:.1f} s")
+    return line
+
+
 def main() -> int:
     try:
         import torch
@@ -2970,6 +3305,8 @@ def main() -> int:
         zoo_line = phase_zoo(report, dev)
         torch.cuda.empty_cache()
         lm_train_line = phase_lm_train(report, dev)
+        torch.cuda.empty_cache()
+        single_line = phase_single_table(report, dev, lm_train_line, smi)
         for entry in kernels:
             name = entry["name"].split()[1]
             if name in selfheal_counts and name in (
@@ -2978,6 +3315,17 @@ def main() -> int:
                 entry["launches_selfheal"] = selfheal_counts[name]
             if name == "fused_embedding_bag":
                 entry["launches_lifecycle"] = lifecycle_line["launches"][name]
+                entry["launches_single_table"] = single_line["bag"][
+                    "launches"]
+                entry["max_abs_err_single_table"] = single_line["bag"][
+                    "max_abs_err"]
+                entry["at_single_table"] = {
+                    f"D={D}, n={BAG_N}, B={BAG_B}": t
+                    for D, t in single_line["bag"]["timing"].items()}
+            if name == "adam_row_update":
+                entry["in_step_us_per_call"] = {
+                    k: v["us_per_call"] for k, v in single_line[
+                        "profile_adam"]["kernel_us_per_call"].items()}
             if name == "flash_attention":
                 entry["launches_lm_train"] = {
                     "train_step": lm_train_line["launcher"]["launches"][name]
@@ -3011,6 +3359,7 @@ def main() -> int:
     print(json.dumps({"sim": sim_line}))
     print(json.dumps({"lm_zoo": zoo_line}))
     print(json.dumps({"lm_train": lm_train_line}))
+    print(json.dumps({"single_table": single_line}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

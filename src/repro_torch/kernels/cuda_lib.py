@@ -28,6 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Devices whose tensors K1, K4 and K5's wrappers hand to the plain versions:
+# the CPU, and ``meta`` (shapes without data, on which FLOPs are counted). A
+# CUDA tensor launches its kernel; any other device raises. K2/K3's plain
+# versions select the live rows by value, which a meta tensor has not: they
+# take CPU tensors only.
+PLAIN_DEVICES = ("cpu", "meta")
+
 LAUNCHES: Dict[str, int] = {
     "fused_embedding_bag": 0,     # K1
     "adagrad_row_update": 0,      # K2

@@ -205,7 +205,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, 1, Hq, D); caches (B, L, Hkv, D); cache_pos (B, L); pos (B,)
     -> (B, 1, Hq, D).
 
-    K5 on CUDA tensors, the plain version on CPU tensors.
+    K5 on CUDA tensors, the plain version on CPU and meta tensors.
     """
     kw = dict(window=window, softcap=softcap)
     if q.is_cuda:
@@ -213,7 +213,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
             cache_pos.to(torch.int32).contiguous(),
             pos.to(torch.int32).contiguous(), **kw)
-    if q.device.type == "cpu":
+    if q.device.type in cuda_lib.PLAIN_DEVICES:
         return decode_attention_plain(q, k_cache, v_cache, cache_pos, pos,
                                       **kw)
     raise ValueError(f"decode_attention: unsupported device {q.device}")

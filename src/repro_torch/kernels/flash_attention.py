@@ -174,13 +174,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
-    K4 on CUDA tensors, the plain version on CPU tensors.
+    K4 on CUDA tensors, the plain version on CPU and meta tensors.
     """
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
     if q.is_cuda:
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), **kw)
-    if q.device.type == "cpu":
+    if q.device.type in cuda_lib.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, **kw)
     raise ValueError(f"flash_attention: unsupported device {q.device}")

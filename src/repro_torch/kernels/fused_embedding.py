@@ -243,10 +243,10 @@ def embedding_bag_cuda(pool: torch.Tensor, enc: torch.Tensor,
 
 
 def embedding_bag_forward(pool, enc, weights, cache, combiner):
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    """K1 on CUDA tensors, its plain version on CPU and meta tensors."""
     if pool.is_cuda:
         return embedding_bag_cuda(pool, enc, weights, cache, combiner)
-    if pool.device.type == "cpu":
+    if pool.device.type in cuda_lib.PLAIN_DEVICES:
         return embedding_bag_plain(pool, enc, weights, cache, combiner)
     raise ValueError(f"fused_embedding_bag: unsupported device {pool.device}")
 

@@ -1,12 +1,16 @@
 """Public kernel entry points: the DLRM training path and LM attention.
 
-Port of ``fused_embedding_bag``, ``sparse_row_grads``, ``fused_row_update``,
-``flash_attention`` and ``decode_attention`` of ``repro/kernels/ops.py``.
-There is no implementation switch: each call dispatches by the device of
-its tensors. CUDA tensors launch the hand-written kernels (K1 for the
-embedding bag, K2/K3 for the row updates, K4 for full-sequence attention,
-K5 for cache attention); CPU tensors run their plain PyTorch versions. A
-CUDA tensor never reaches a plain version.
+Port of ``fused_embedding_bag``, ``embedding_bag``, ``sparse_row_grads``,
+``fused_row_update``, ``flash_attention`` and ``decode_attention`` of
+``repro/kernels/ops.py``. There is no implementation switch: each call
+dispatches by the device of its tensors. CUDA tensors launch the
+hand-written kernels (K1 for the embedding bags, K2/K3 for the row updates,
+K4 for full-sequence attention, K5 for cache attention); CPU tensors run
+their plain PyTorch versions, and so do ``meta`` tensors at the bags and
+attention, which hold no data for a kernel to read (``launch/costs.py``
+counts FLOPs on them; the row updates' plain versions select rows by value
+and take no meta tensor). A CUDA tensor never reaches a plain version; any
+other device raises.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_embedding as fe
 from repro_torch.kernels import fused_update as fu
+from repro_torch.sharding.policy import EmbeddingPlan
 
 
 def fused_embedding_bag(pool, indices, weights=None, *, plan):
@@ -25,6 +30,23 @@ def fused_embedding_bag(pool, indices, weights=None, *, plan):
     The backward dedupes and scatters sparse row gradients.
     """
     return fe.fused_embedding_bag(pool, indices, weights, plan=plan)
+
+
+def embedding_bag(table, indices, weights=None, *, plan=None):
+    """Single-table embedding bag. table (R, D); indices (B, n);
+    weights (B, n)? -> (B, D).
+
+    ``fused_embedding_bag`` with one table (T=1), so it shares the combiner
+    semantics (weights apply before sum/mean/max), K1 and the sparse
+    backward. ``plan`` is an ``EmbeddingPlan``; ``None`` is the default
+    plan (sum, no offsets, no cache). The reference's loose ``combiner=``
+    keyword, a deprecated shim, has no counterpart: pass it in ``plan``.
+    """
+    out = fused_embedding_bag(
+        table, indices[:, None, :],
+        None if weights is None else weights[:, None, :],
+        plan=EmbeddingPlan() if plan is None else plan)
+    return out[:, 0]
 
 
 def sparse_row_grads(pool, indices, g, weights=None, *, plan):

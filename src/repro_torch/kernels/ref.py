@@ -1,4 +1,4 @@
-"""Plain oracles (tests only): the fused embedding bag and naive attention.
+"""Plain oracles (tests only): the embedding bags and naive attention.
 
 Twins of ``repro/kernels/ref.py``.
 """
@@ -9,6 +9,23 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels.common import MASK_VALUE
+
+
+def embedding_bag_ref(table, indices, weights=None, *, combiner="sum"):
+    """table (R, D); indices (B, n) int; weights (B, n) or None -> (B, D).
+
+    The weights multiply before the combiner; differentiable through plain
+    autograd."""
+    gathered = table[indices.long()]                        # (B, n, D)
+    if weights is not None:
+        gathered = gathered * weights[..., None]
+    if combiner == "sum":
+        return gathered.sum(dim=1)
+    if combiner == "mean":
+        return gathered.mean(dim=1)
+    if combiner == "max":
+        return gathered.amax(dim=1)
+    raise ValueError(combiner)
 
 
 def fused_embedding_bag_ref(pool, indices, weights=None, *,

@@ -23,9 +23,11 @@ reference keys by the process's own step count (a resumed run's blobs
 would otherwise sort below the ones it resumed from); the final one is
 skipped when that step is already saved (the reference writes it twice).
 ``--resume`` restores the newest one through ``elastic.resume_on_mesh``;
-the sample stream restarts at sample 0,
-as in the reference. The default ``--arch`` stays ``wide_deep``, which
-the port's DLRM callers rely on; the reference's is ``llama3.2-3b``.
+the sample stream restarts at sample 0, as in the reference. The
+DLRM-only flags ``--chaos``, ``--supervise`` and ``--chaos-proc`` leave an
+LM run unchanged, as the reference's do. The default ``--arch`` stays
+``wide_deep``, which the port's DLRM callers rely on; the reference's is
+``llama3.2-3b``.
 
 A DLRM arch runs the modes below. Batches are ``criteo_batch(cfg, 11,
 ids)`` in the order of a single-worker ``ShardDataLoader``, remapped
@@ -523,11 +525,10 @@ class LMRun(NamedTuple):
 def train_lm(args, *, state: Optional[Dict[str, Any]] = None) -> LMRun:
     """LM training on ``args.device`` (the reference's LM mode).
 
-    ``state`` replaces the fresh train state (seed 0) when nothing is
+    ``--chaos``, ``--supervise`` and ``--chaos-proc`` are DLRM modes: an LM
+    trains as if they were absent, as in the reference, which dispatches
+    them only for a DLRM arch. ``state`` replaces the fresh train state (seed 0) when nothing is
     restored; the run consumes it (the step donates its state)."""
-    if args.chaos or args.supervise or args.chaos_proc is not None:
-        raise SystemExit("--chaos, --supervise and --chaos-proc run DLRM "
-                         "jobs only")
     device = resolve_device(args.device)
     batch_size = args.batch or 8
     cfg = get_arch(args.arch)

@@ -773,3 +773,60 @@ def test_lifecycle_on_card_launches_k1_and_decides_as_on_cpu(dev, tmp_path):
     assert len(card.brain.config_db) == 1
     assert np.all(np.isfinite(card.losses)) and 0.5 < card.auc <= 1.0
     assert card.peak_mem_bytes > 0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean", "max"])
+@pytest.mark.parametrize("D,n,route", [(16, 4, "vector"), (1, 4, "wide"),
+                                       (16, 3, "generic"), (8, 4, "generic")])
+def test_single_table_bag_launches_k1(dev, D, n, route, combiner, weighted):
+    """``ops.embedding_bag`` on the card: one K1 launch on ``route``, bit
+    for bit with K1's plain version on the CPU; a strided view of the ids
+    takes the same route through the wrapper's int32 copy."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(D * 10 + n)
+    R, B = 1000, 37
+    table = torch.from_numpy(rng.standard_normal((R, D)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, R, (B, n + 1)))[:, :n]   # int64
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (B, n)).astype(np.float32)) \
+        if weighted else None
+    plan = tpol.EmbeddingPlan(combiner=combiner)
+    want = fe.embedding_bag_plain(table, idx[:, None, :].to(torch.int32),
+                                  None if w is None else w[:, None, :],
+                                  None, combiner)[:, 0]
+    td, id_, wd = table.to(dev), idx.to(dev), None if w is None else w.to(dev)
+    cuda_lib.reset_launches()
+    got = ops.embedding_bag(td, id_, wd, plan=plan)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.LAUNCHES) == {**{k: 0 for k in cuda_lib.LAUNCHES},
+                                       "fused_embedding_bag": 1}
+    assert torch.equal(got.cpu(), want)
+    enc, _ = fe.kernel_inputs(td, id_[:, None, :], plan)
+    assert fe.bag_route(D, n, td, enc, got,
+                        *([] if wd is None else [wd])) == route
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-2.7b"])
+def test_serve_batched_example_on_card_matches_cpu(dev, arch):
+    """``examples/serve_batched_torch.py``'s ``serve`` on the card gives the
+    CPU's tokens on the same weights; llama launches K5 and nothing else,
+    mamba2 nothing."""
+    path = (Path(__file__).resolve().parent.parent / "examples"
+            / "serve_batched_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_batched_torch", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = reduce_config(get_arch(arch))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    reqs = ex.make_requests(cfg, 6)
+    cpu, _ = ex.serve(cfg, params, reqs, 3, "cpu")
+    cuda_lib.reset_launches()
+    card, _ = ex.serve(cfg, tf.params_to(params, dev), reqs, 3, dev)
+    counts = dict(cuda_lib.LAUNCHES)
+    assert {r: c.tokens for r, c in card.items()} == \
+        {r: c.tokens for r, c in cpu.items()}
+    if arch == "llama3.2-3b":
+        assert counts["decode_attention"] > 0
+        assert sum(counts.values()) == counts["decode_attention"]
+    else:
+        assert sum(counts.values()) == 0

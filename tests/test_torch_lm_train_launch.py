@@ -122,3 +122,24 @@ def test_quickstart_example_runs_on_cpu():
     assert restored["step"] == 6
     for k, v in zoo._flatten(state["params"]).items():
         assert torch.equal(zoo._flatten(restored["params"])[k], v), k
+
+
+@pytest.mark.parametrize("flag", [["--chaos", "ps_loss@1"], ["--supervise"],
+                                  ["--chaos-proc", "kill@1"]],
+                         ids=lambda f: f[0].lstrip("-"))
+def test_launcher_lm_mode_ignores_dlrm_only_flags(capsys, monkeypatch, flag):
+    """``--chaos``, ``--supervise`` and ``--chaos-proc`` are DLRM modes: the
+    reference's ``main`` dispatches them only for a DLRM arch and trains an
+    LM as if they were absent; the port does the same."""
+    argv = LAUNCH[:3] + ["2"] + LAUNCH[4:]
+    monkeypatch.setattr(sys, "argv", ["train"] + argv + flag)
+    assert jlaunch.main() is None
+    out = capsys.readouterr().out
+    assert "done: 2 steps, exactly-once=True" in out
+    assert "CHAOS" not in out
+    plain = tlaunch.main(argv + ["--device", "cpu"])
+    flagged = tlaunch.main(argv + ["--device", "cpu"] + flag)
+    assert isinstance(flagged, tlaunch.LMRun)
+    assert len(flagged.losses) == 2 and flagged.state["step"] == 2
+    assert flagged.losses == plain.losses
+    assert flagged.grad_norms == plain.grad_norms

@@ -1,13 +1,15 @@
 """Guards of the PyTorch/CUDA port (``src/repro_torch``).
 
-* nothing in the port, nor ``chip_smoke.py`` or the port's lifecycle
-  example, imports JAX or ``repro``;
+* nothing in the port, nor ``chip_smoke.py`` or the port's examples
+  (``examples/*_torch.py``), imports JAX or ``repro``;
 * the port imports with JAX unavailable; the job master and the worker's
   entry module import with torch unavailable too (the master stays out of
   the accelerator stack's failure domain; a worker beats "boot" before it
   imports torch), and so do the brain and the simulator (host code);
 * entry points raise without CUDA unless asked for the CPU, and the kernel
-  wrappers take no tensor that is not on a CUDA device;
+  wrappers take no tensor that is not on a CUDA device; the dispatching
+  entries run the plain versions on CPU tensors, K1, K4 and K5's on meta
+  tensors too, and count no launch;
 * the kernel library refuses to build without ``nvcc`` instead of falling
   back.
 """
@@ -40,8 +42,8 @@ PORT_MODULES = sorted(
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "elastic_dlrm_train_torch.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_roots(path: Path):
@@ -195,6 +197,48 @@ def test_cpu_dispatch_takes_the_plain_versions_and_counts_nothing():
     fu.adagrad_row_update(pool, torch.zeros_like(pool), rows,
                           torch.ones((2, 4)), lr=0.1)
     assert cuda_lib.LAUNCHES == {k: 0 for k in cuda_lib.LAUNCHES}
+
+
+def test_meta_dispatch_takes_the_plain_versions_and_counts_nothing():
+    """Meta tensors (shapes without data, where ``launch/costs.py`` counts
+    FLOPs) reach K1, K4 and K5's plain versions: no kernel can read them."""
+    cuda_lib.reset_launches()
+    meta = torch.device("meta")
+    pool = torch.empty((8, 4), device=meta)
+    enc = torch.empty((1, 2, 2), dtype=torch.int32, device=meta)
+    assert fe.embedding_bag_forward(pool, enc, None, None, "sum").shape == \
+        (1, 2, 4)
+    # the row updates select live rows by value: no meta tensor
+    rows = torch.empty((2,), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fu.adagrad_row_update(pool, torch.empty_like(pool), rows,
+                              torch.empty((2, 4), device=meta), lr=0.1)
+    q = torch.empty((1, 4, 2, 16), device=meta)
+    kv = torch.empty((1, 4, 1, 16), device=meta)
+    assert fa.flash_attention(q, kv, kv).shape == q.shape
+    pos = torch.empty((1, 4), dtype=torch.int32, device=meta)
+    assert da.decode_attention(q[:, :1], kv, kv, pos,
+                               torch.empty((1,), dtype=torch.int32,
+                                           device=meta)).shape == (1, 1, 2, 16)
+    assert cuda_lib.LAUNCHES == {k: 0 for k in cuda_lib.LAUNCHES}
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch):
+    """The batched-serving example and the cost tool: the example raises
+    without CUDA unless asked for the CPU; the cost tool allocates nothing
+    on any device (it counts on meta tensors)."""
+    import importlib.util
+    path = ROOT / "examples" / "serve_batched_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_batched_torch", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ex.main(["--requests", "1"])
+    from repro_torch.launch import costs
+    api = costs.build_model(costs.get_arch("llama3.2-3b"))
+    assert {t.device.type for t in costs.optim_mod.tree_leaves(
+        costs.meta_params(api))} == {"meta"}
 
 
 def test_kernel_library_refuses_to_build_without_nvcc(monkeypatch, tmp_path):
