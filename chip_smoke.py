@@ -141,11 +141,13 @@ f32 caches):
 15. (a) K4 and K5 at the zoo's new shapes against their plain versions
     within ATTN_TOL: K5 at recurrentgemma's local layers (1 kv-head, 10
     q-heads, D=256, window 2048; bf16 q over an f32 and a bf16 cache, 128
-    and 2048 slots (split), a wrapped ring, empty splits); K4's SIMT route
-    at D=256, 10/1 heads, f32 and bf16, causal and window 2048; its
-    tensor-core route at Whisper's encoder (S=1500, 16/16 heads, D=64,
-    non-causal) and cross-attention (Sq=1 and Sq=16 against 1,500 keys),
-    and the SIMT route at the same shapes in f32. (b) granite-moe-1b-a400m,
+    and 2048 slots (split), a wrapped ring, empty splits); K4 at D=256,
+    10/1 heads, causal and window 2048, on its tensor-core route in bf16
+    (also one query at position 2,047 against 2,048 keys, and S=1000 with
+    window 256) and its SIMT route in f32; its tensor-core route at
+    Whisper's encoder (S=1500, 16/16 heads, D=64, non-causal) and
+    cross-attention (Sq=1 and Sq=16 against 1,500 keys), and the SIMT
+    route at the same shapes in f32. (b) granite-moe-1b-a400m,
     mamba2-2.7b and recurrentgemma-2b at full width and depth:
     ``forward_lm`` against ``prefill_into_cache`` on a 32-token prompt, rel
     < FWD_DEC_REL_BF16 (MoE at ``capacity_factor = n_experts``); for the
@@ -166,9 +168,16 @@ f32 caches):
     mamba2 and whisper cut to 2 layers, recurrentgemma to 3 (one whole
     recurrent, recurrent, local group); forward and 8 decode steps within
     CARD_CPU_REL. (e) K5 at recurrentgemma's L=128 and L=2048, K4 at
-    Whisper's encoder and cross-attention shapes and at D=256, S=2048,
-    timed as in phase 11 with the plain version, SDPA and the bound. (f)
-    per model: ms per decode step, tok/s served, peak memory.
+    Whisper's encoder and cross-attention shapes and at D=256, S=2048
+    (the tensor-core route in bf16, the SIMT route in f32), timed as in
+    phase 11 with the plain version, SDPA and the bound. (f)
+    recurrentgemma-2b's eval step (``trainer.make_eval_step``) on (b)'s
+    full-depth weights at B=1, S=2048 on an ``lm_batch``: K4 exactly once
+    per local layer (8) and nothing else (counts reset just before one
+    step, read just after), its loss within LM_EVAL_REL of the training
+    (chunked) route's on the same batch, and the median of ZOO_EVAL_STEPS
+    synchronised steps. (g) per model: ms per decode step, tok/s served,
+    peak memory.
 
 LM training, run last (adamw at LM_LR, remat; attention trains on the
 chunked route of ``models/attention.py``, so no kernel launches in a train
@@ -230,7 +239,8 @@ phase 17's under ``launches_single_table`` with their timings under
 ``at_single_table``, K3 with its in-step time under
 ``in_step_us_per_call``, K4 and K5 with phase 15's per
 model under ``launches_lm_zoo`` and their phase-15 timings under
-``at_lm_zoo_shapes``, K4 with phase 16's per train step and per eval under
+``at_lm_zoo_shapes``, K4 with phase 15 (f)'s eval step under
+``launches_lm_zoo_eval`` and phase 16's per train step and per eval under
 ``launches_lm_train``), and last ``{"ok": true, "device": {...}}``. Full
 details go to ``build/chip_smoke.json``.
 """
@@ -361,6 +371,7 @@ def clone_state(state, device):
 PTXAS_REPORTED = {
     "bag_vec16_kernelILi0E": "K1 D=16 vector (sum)",
     "bag_wide_kernelILi0E": "K1 D=1 wide (sum)",
+    "flash_tc_kernelILi256": "K4 tensor-core D=256",
     "flash_tc_kernelILi128": "K4 tensor-core D=128",
     "flash_tc_kernelILi64": "K4 tensor-core D=64",
     "flash_fwd_kernelI\\w*Li8E": "K4 SIMT D<=128 (f32, bf16)",
@@ -2091,6 +2102,8 @@ FWD_DEC_REL_F32 = 1e-3        # f32 forward vs decode, full width and depth
 ZOO_SERVE = ["--full", "--requests", "4", "--slots", "2", "--max-new", "8"]
 ZOO_ENCDEC = "whisper-medium"
 ZOO_ENCDEC_TOKENS = 16
+ZOO_EVAL_ARCH = "recurrentgemma-2b"   # (f): K4 at D=256 in its eval step
+ZOO_EVAL_STEPS = 5
 # the other five at full width, depth cut where the card's memory or the
 # run's time asks for it: gemma3 to one 5-local + 1-global group, the
 # 35B/34B dense models and mixtral (4.8 GB of experts per layer; 281 GB in
@@ -2118,27 +2131,33 @@ def phase_zoo_kernels(report, dev):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(15)
-    k4 = [  # dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, want route
-        ("float32", 1, 2048, 2048, 10, 1, 256, True, None, "simt"),
-        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, None, "simt"),
-        ("float32", 1, 2048, 2048, 10, 1, 256, True, 2048, "simt"),
-        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, 2048, "simt"),
-        ("bfloat16", 1, 1500, 1500, 16, 16, 64, False, None, "tensor-core"),
-        ("float32", 1, 1500, 1500, 16, 16, 64, False, None, "simt"),
-        ("bfloat16", 1, 1, 1500, 16, 16, 64, False, None, "tensor-core"),
-        ("float32", 1, 1, 1500, 16, 16, 64, False, None, "simt"),
-        ("bfloat16", 1, 16, 1500, 16, 16, 64, False, None, "tensor-core"),
+    k4 = [  # dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, route
+        ("float32", 1, 2048, 2048, 10, 1, 256, True, None, 0, "simt"),
+        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, None, 0,
+         "tensor-core"),
+        ("float32", 1, 2048, 2048, 10, 1, 256, True, 2048, 0, "simt"),
+        ("bfloat16", 1, 2048, 2048, 10, 1, 256, True, 2048, 0,
+         "tensor-core"),
+        ("bfloat16", 1, 1, 2048, 10, 1, 256, True, 2048, 2047,
+         "tensor-core"),
+        ("bfloat16", 1, 1000, 1000, 10, 1, 256, True, 256, 0, "tensor-core"),
+        ("bfloat16", 1, 1500, 1500, 16, 16, 64, False, None, 0,
+         "tensor-core"),
+        ("float32", 1, 1500, 1500, 16, 16, 64, False, None, 0, "simt"),
+        ("bfloat16", 1, 1, 1500, 16, 16, 64, False, None, 0, "tensor-core"),
+        ("float32", 1, 1, 1500, 16, 16, 64, False, None, 0, "simt"),
+        ("bfloat16", 1, 16, 1500, 16, 16, 64, False, None, 0, "tensor-core"),
     ]
     errs = {"flash_attention": 0.0, "decode_attention": 0.0}
     rows = []
-    for dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, route in k4:
+    for dtype, B, Sq, Skv, Hq, Hkv, D, causal, window, q_offset, route in k4:
         q = _randn(gen, (B, Sq, Hq, D), dtype, dev)
         k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
         v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
         got_route = "tensor-core" if fa.tc_route(q, k) else "simt"
         check(got_route == route, f"K4 {dtype} D={D} took the {got_route} "
               f"route, not {route}")
-        kw = dict(causal=causal, window=window)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
         got = fa.flash_attention_cuda(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -2246,6 +2265,8 @@ def _zoo_decoder(arch, dev, num_layers=None, serve_it=False):
             "ms_per_decode_step": ms,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     del cache, seq
+    if arch == ZOO_EVAL_ARCH:
+        info["eval"] = _zoo_eval(params, cfg, dev)
     if arch in ZOO_CHECK_F32:
         cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                     compute_dtype="float32")
@@ -2305,6 +2326,52 @@ def _zoo_decoder(arch, dev, num_layers=None, serve_it=False):
             f"{info['serve']['tokens_per_s']:.1f} tok/s"
             if serve_it else ""))
     return info
+
+
+def _zoo_eval(params, cfg, dev):
+    """(f) the eval step at B=1, S=LM_LONG_SEQ: K4 once per attention
+    layer and nothing else, its loss against the training route's on the
+    same batch, and the median of ZOO_EVAL_STEPS synchronised steps."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optim, trainer
+    api = build_model(cfg)
+    batch = _lm_batch(cfg, dev, 1, LM_LONG_SEQ)
+    step = trainer.make_eval_step(api)
+    state = {"params": params}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    eval_loss = float(step(state, batch))
+    counts = dict(cuda_lib.LAUNCHES)
+    n_attn = _n_attn(cfg)
+    check(counts["flash_attention"] == n_attn and sum(counts.values()) ==
+          n_attn, f"{cfg.name} eval launched {counts}, want K4 x {n_attn}")
+    ms = []
+    for _ in range(ZOO_EVAL_STEPS):
+        _, sec = _sync_s(lambda: float(step(state, batch)))
+        ms.append(sec * 1e3)
+    with torch.enable_grad():
+        leaves = optim.tree_map(lambda t: t.detach().requires_grad_(),
+                                params)
+        cuda_lib.reset_launches()
+        train_loss = float(api.loss(leaves, batch, remat=False))
+        train_counts = dict(cuda_lib.LAUNCHES)
+        del leaves
+    check(sum(train_counts.values()) == 0, f"the training route launched "
+          f"{train_counts}")
+    rel = abs(eval_loss - train_loss) / abs(train_loss)
+    check(math.isfinite(eval_loss) and rel < LM_EVAL_REL, f"{cfg.name} eval "
+          f"loss {eval_loss} vs training route {train_loss}: rel {rel:.3g}")
+    med = sorted(ms)[len(ms) // 2]
+    log(f"phase 15 (f) {cfg.name} eval step B=1 S={LM_LONG_SEQ}: loss "
+        f"{eval_loss:.5f} on the K4 route ({counts['flash_attention']} K4 "
+        f"launches), {train_loss:.5f} on the training route (rel {rel:.3g},"
+        f" bound {LM_EVAL_REL}); {med:.2f} ms (median of {len(ms)})")
+    return {"batch": 1, "seq": LM_LONG_SEQ, "loss_k4_route": eval_loss,
+            "loss_training_route": train_loss, "rel": rel,
+            "bound": LM_EVAL_REL, "launches": counts, "step_ms": ms,
+            "median_ms": med}
 
 
 def _rel(want, got):
@@ -2452,18 +2519,22 @@ def _zoo_timing(dev):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
-    k4_cases = [  # tag, B, Sq, Skv, Hq, Hkv, D, causal, dtype, peak
+    k4_cases = [  # tag, B, Sq, Skv, Hq, Hkv, D, causal, dtype
         ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False, "bfloat16"),
         ("whisper cross-attention, one decode step", 1, 1, 1500, 16, 16, 64,
          False, "bfloat16"),
-        ("recurrentgemma local, SIMT D=256", 1, 2048, 2048, 10, 1, 256,
-         True, "bfloat16"),
+        ("recurrentgemma local, tensor-core D=256", 1, 2048, 2048, 10, 1,
+         256, True, "bfloat16"),
+        ("recurrentgemma local, SIMT D=256 (f32)", 1, 2048, 2048, 10, 1,
+         256, True, "float32"),
     ]
     for tag, B, Sq, Skv, Hq, Hkv, D, causal, dtype in k4_cases:
         q = _randn(gen, (B, Sq, Hq, D), dtype, dev)
         k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
         v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
         route = "tensor-core" if fa.tc_route(q, k) else "simt"
+        check(route == ("tensor-core" if dtype == "bfloat16" else "simt"),
+              f"K4 {tag} took the {route} route")
         kw = dict(causal=causal, window=2048 if D == 256 else None)
         k_ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), flush)
         p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
@@ -2478,8 +2549,9 @@ def _zoo_timing(dev):
             qt, kt, vt, is_causal=causal, enable_gqa=True), flush)
         pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
         flops = 4 * D * Hq * B * pairs
-        n_bytes = 2 * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
-        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+        n_bytes = q.element_size() * 2 * B * (Sq * Hq + Skv * Hkv) * D
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S
+                              if dtype == "bfloat16" else F32_FLOP_PER_S)
         rows.append({"kernel": "K4", "at": f"{tag}: B={B} Sq={Sq} Skv={Skv}"
                      f" Hq={Hq} Hkv={Hkv} D={D} {dtype} causal={causal}",
                      "route": route, "ms": k_ms, "plain_ms": p_ms,
@@ -3331,6 +3403,9 @@ def main() -> int:
                     "train_step": lm_train_line["launcher"]["launches"][name]
                     // LM_TRAIN_STEPS,
                     "eval": lm_train_line["eval"]["launches"][name]}
+                entry["launches_lm_zoo_eval"] = {
+                    ZOO_EVAL_ARCH: zoo_line["models"][ZOO_EVAL_ARCH]["eval"][
+                        "launches"][name]}
             if name in ("flash_attention", "decode_attention"):
                 entry["launches_lm_zoo"] = _zoo_launches(zoo_line, name)
                 entry["max_abs_err_lm_zoo"] = zoo_line["max_abs_err"][name]

@@ -32,9 +32,11 @@
 // instances); row maxima and sums are reduced over the 16 threads of a
 // half-warp with shuffles. The k-block loop only
 // visits tiles that some query of the block can reach (the Pallas
-// kernel's `pl.when(live)` guard). The products run on the f32 cores:
-// the tensor cores (`wgmma`), TMA staging and a pipelined tile ring are
-// left for a later version.
+// kernel's `pl.when(live)` guard). The products run on the f32 cores.
+// This is the route for float32 at every head dim and for bfloat16 at head
+// dims other than 64, 128 and 256; bfloat16 at those takes the tensor-core
+// kernel (flash_attention_tc.cu, `tc_route` in
+// src/repro_torch/kernels/flash_attention.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

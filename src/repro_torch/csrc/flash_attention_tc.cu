@@ -1,5 +1,5 @@
 // K4, tensor-core route: flash attention forward for bfloat16 q, k, v with
-// head dim 64 or 128, on Hopper's wgmma and TMA (sm_90a).
+// head dim 64, 128 or 256, on Hopper's wgmma and TMA (sm_90a).
 //
 // Replaces, with flash_attention.cu (the SIMT route, which keeps float32
 // and the other head dims), the TPU kernel `_flash_kernel` (launched by
@@ -17,9 +17,10 @@
 //
 // Bound on this card: operations. 4*D flops per reachable (query, key)
 // pair and q-head; at B=1, S=2048, 24 heads, D=128, causal, 25.8 GFLOP at
-// 989 TFLOP/s of bf16 tensor cores against 34 MB of q, k, v and o. The
-// kernel does 1.5x those flops (below), so its own ceiling is 1.5x the
-// bound.
+// 989 TFLOP/s of bf16 tensor cores against 34 MB of q, k, v and o; at
+// recurrentgemma's local layers (10 q-heads over one kv-head, D=256),
+// 21.5 GFLOP against 23 MB. The kernel does 1.5x those flops (below), so
+// its own ceiling is 1.5x the bound.
 //
 // Why P is split: the plain version keeps the probabilities p in f32 for
 // the PV product, and the bf16 output is held to one bf16 step of it.
@@ -34,19 +35,32 @@
 // row), the q-blocks with the most causal work launched first.
 // - Warpgroup 0 is the producer (setmaxnreg 24): one thread issues TMA
 //   loads (cp.async.bulk.tensor, 4-d maps over (B, S, H, D), 128-byte
-//   swizzle, zero fill past S) of the Q tile once and of 128-key K and V
+//   swizzle, zero fill past S) of the Q tile once and of BK-key K and V
 //   tiles into a 2-stage ring, with a full / empty mbarrier per stage. Only
 //   the k tiles some query of the block can reach are loaded (the Pallas
 //   kernel's `pl.when(live)` guard).
 // - Warpgroups 1 and 2 (setmaxnreg 240) each own 64 query rows. Per tile:
-//   S = Q K^T by wgmma m64n128k16 (both operands K-major in shared memory)
+//   S = Q K^T by wgmma m64nBKk16 (both operands K-major in shared memory)
 //   into f32 registers; scale, softcap and the masks (only on tiles that
 //   need them) in registers; the running m / l and the rescale of the
 //   output accumulator; P packed to bf16 hi / lo in the register layout of
 //   wgmma's A operand (the m64nNk16 accumulator fragment maps onto it, so P
-//   never goes to shared memory); O += P_hi V + P_lo V by wgmma with A
-//   from registers and V MN-major (transpose bit). A warp's lane 0 then
-//   releases the stage. The output is stored from registers with row masks.
+//   never goes to shared memory); O += P_hi V + P_lo V by wgmma m64nDk16
+//   with A from registers and V MN-major (transpose bit). A warp's lane 0
+//   then releases the stage. The output is stored from registers with row
+//   masks.
+//
+// The key tile BK is per instance (`Smem<HD>::BK`), so that a consumer
+// thread holds at most 192 accumulator and P registers (o_acc HD/2, s_acc
+// BK/2, P hi + lo BK/2) under its 240:
+//   D=64:  BK=128, 32 + 64 + 64;  Q 16 KB, K and V 2 x 2 x 16 KB:  81 KB
+//   D=128: BK=128, 64 + 64 + 64;  Q 32 KB, K and V 2 x 2 x 32 KB: 161 KB
+//   D=256: BK=64, 128 + 32 + 32;  Q 64 KB, K and V 2 x 2 x 32 KB: 193 KB
+// of shared memory (with the barriers and the 1 KB alignment), under the
+// 227 KB a block may have: one CTA per SM at D=128 and 256. At D=256 a
+// third stage would need 257 KB, and BK=128 256 registers before any
+// addressing. The work per tile and per barrier is the D=128 instance's:
+// QK^T 64 x BK x D and PV twice 64 x D x BK per warpgroup.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +69,6 @@
 namespace {
 
 constexpr int BQ = 128;           // query rows per CTA (2 consumer warpgroups)
-constexpr int BK = 128;           // keys per tile
 constexpr int STAGES = 2;         // K/V tiles in flight
 constexpr int NT = 384;           // producer + 2 consumer warpgroups
 constexpr float MASK_VALUE = -1e30f;
@@ -139,9 +152,32 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
+                                         uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a_desc,
-                                              uint64_t b_desc, int accumulate) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc,
+                                         uint64_t b_desc, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -236,11 +272,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256], A in registers, B MN-major in
+// shared memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
 template <int HD>
 struct Smem {                      // byte offsets from a 1024-aligned base
+  static constexpr int BK = HD == 256 ? 64 : 128;     // keys per tile
   static constexpr int CHUNKS = HD / 64;              // 128-byte column chunks
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;        // one K or V tile
@@ -258,6 +356,7 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
     int Sq, int Skv, int Hq, int Hkv, int q_offset, int causal, int window,
     float softcap, float scale) {
   using L = Smem<HD>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sK = base + L::K, sV = base + L::V;
@@ -348,8 +447,8 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t q_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
         const uint32_t k_off = (kk / 4) * BK * 128 + (kk % 4) * 32;
-        wgmma_ss_n128(s_acc, q_desc + (q_off >> 4),
-                      sw128_desc(k_tile + k_off, 16, 1024), kk > 0);
+        wgmma_ss(s_acc, q_desc + (q_off >> 4),
+                 sw128_desc(k_tile + k_off, 16, 1024), kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -383,7 +482,7 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
         m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s_acc[i]);
       float alpha[2], m_use[2], row_sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {      // a row's 128 keys sit on 4 lanes
+      for (int r = 0; r < 2; ++r) {      // a row's BK keys sit on 4 lanes
         m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
         m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
         alpha[r] = exp2f(m[r] - m_new[r]);
@@ -505,8 +604,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
            float softcap, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, B, Sq, Hq, HD, BQ) ||
-      !make_map(&tm_k, k, B, Skv, Hkv, HD, BK) ||
-      !make_map(&tm_v, v, B, Skv, Hkv, HD, BK))
+      !make_map(&tm_k, k, B, Skv, Hkv, HD, Smem<HD>::BK) ||
+      !make_map(&tm_v, v, B, Skv, Hkv, HD, Smem<HD>::BK))
     return (int)cudaErrorInvalidValue;
   const int smem = Smem<HD>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -521,7 +620,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 }  // namespace
 
-// bf16 q, k, v with head dim 64 or 128, Skv > 0, 16-byte aligned pointers
+// bf16 q, k, v with head dim 64, 128 or 256, Skv > 0, 16-byte aligned
+// pointers
 extern "C" int repro_flash_attention_tc(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Skv, int Hq, int Hkv, int D, int q_offset, int causal, int window,
@@ -531,6 +631,9 @@ extern "C" int repro_flash_attention_tc(
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 256)
+    return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+                       window, softcap, scale, s);
   if (D == 128)
     return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
                        window, softcap, scale, s);

@@ -7,14 +7,16 @@ entry raises when grad mode is on and an input requires grad, so that a
 kernel output never silently drops a gradient.
 
 * CUDA tensors launch K4 by one of two routes, chosen by ``tc_route`` from
-  the dtype and the shapes alone. bf16 with head dim 64 or 128 takes the
-  tensor-core kernel (``csrc/flash_attention_tc.cu``: TMA loads into a
+  the dtype and the shapes alone. bf16 with head dim 64, 128 or 256 takes
+  the tensor-core kernel (``csrc/flash_attention_tc.cu``: TMA loads into a
   shared-memory ring, ``wgmma`` for QK^T and for PV, P split into bf16 hi
-  and lo parts so that it keeps f32 accuracy). Everything else (f32, other
-  head dims up to 256, bf16 at head dim 256 included) takes the SIMT
-  kernel (``csrc/flash_attention.cu``: products on the f32 cores). In both, one thread block per (q block, q head, batch
-  row) walks the reachable k blocks with running f32 ``m``/``l``/``acc``.
-  Neither gives way to the other on a failure.
+  and lo parts so that it keeps f32 accuracy; 128-key tiles at head dim 64
+  and 128, 64-key tiles at 256). Everything else (f32 at every head dim,
+  bf16 at other head dims up to 256) takes the SIMT kernel
+  (``csrc/flash_attention.cu``: products on the f32 cores). In both, one
+  thread block per (q block, q head, batch row) walks the reachable k
+  blocks with running f32 ``m``/``l``/``acc``. Neither gives way to the
+  other on a failure.
 * CPU tensors run the plain version ``flash_attention_plain``, which follows
   the Pallas body step by step on the same block sizes: f32 scores, the
   softcap, the ``kpos < kv_len`` / causal / window masks, the running
@@ -38,12 +40,13 @@ from repro_torch.kernels.common import MASK_VALUE as NEG_INF
 BLOCK_Q = 64          # the SIMT kernel's tile: 64 queries x 64 keys
 BLOCK_K = 64
 MAX_HEAD_DIM = 256    # the SIMT kernel's; 209 KB of shared memory at 256
-TC_HEAD_DIMS = (64, 128)   # the tensor-core kernel's head dims (bf16 only)
+TC_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernel's (bf16 only)
 
 
 def tc_route(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether K4 on these inputs takes the tensor-core kernel: bf16 with
-    head dim 64 or 128 and at least one key. Otherwise the SIMT kernel."""
+    head dim 64, 128 or 256 and at least one key. Otherwise the SIMT
+    kernel."""
     return (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
             and k.shape[1] > 0)
 
@@ -141,8 +144,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``repro/kernels/flash_attention.py``. Bound by operations: 4·D flops
     per reachable (query, key) pair and q-head against a few bytes per
     element of q, k, v and o. ``tc_route`` picks the kernel: the
-    tensor-core one (bf16, head dim 64 or 128; its TMA loads need 16-byte
-    aligned q, k, v) or the SIMT one on the f32 cores.
+    tensor-core one (bf16, head dim 64, 128 or 256; its TMA loads need
+    16-byte aligned q, k, v) or the SIMT one on the f32 cores.
     """
     _check(q, k, v, q_offset)
     B, Sq, Hq, D = q.shape

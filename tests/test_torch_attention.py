@@ -105,6 +105,12 @@ FLASH_CASES = [
     (1, 40, 1, 10, 256, True, 16, "float32"),
     (1, 24, 1, 10, 256, False, None, "bfloat16"),
     (2, 40, 1, 10, 256, True, None, "bfloat16"),
+    # the edges of the tensor-core tile at head dim 256 (128 queries x 64
+    # keys): S=130 is ragged against both, window 64 is one key tile
+    (1, 130, 1, 10, 256, True, None, "bfloat16"),
+    (1, 130, 1, 10, 256, False, None, "float32"),
+    (1, 136, 1, 10, 256, True, 64, "bfloat16"),
+    (1, 136, 1, 10, 256, True, 64, "float32"),
 ]
 
 
@@ -125,6 +131,30 @@ def test_flash_plain_matches_pallas_and_oracle(B, S, Hkv, G, D, causal,
     # the port's own block size gives the same function
     _close(tfa.flash_attention_plain(tq, tk, tv, causal=causal,
                                      window=window), got, _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,q_offset,window", [
+    (40, 104, 64, 24),     # queries after a 64-token prefix, a window
+    (1, 72, 71, None),     # one query at the last position
+])
+def test_flash_plain_q_offset_at_head_dim_256(Sq, Skv, q_offset, window,
+                                              dtype):
+    """recurrentgemma's local shape (10 q-heads over one kv-head, D=256)
+    with Sq != Skv: the plain version against the oracle, which takes
+    ``q_offset`` (the Pallas wrapper does not), at the SIMT tile and at the
+    tensor-core kernel's 128 x 64 tile."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(Sq + Skv, 1, Sq, Skv, 1, 10, 256,
+                                        dtype)
+    kw = dict(causal=True, window=window)
+    got = tfa.flash_attention_plain(tq, tk, tv, q_offset=q_offset, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    oracle = attention_ref(jq, jk, jv, q_offset=q_offset, **kw)
+    _close(got, oracle, F32_TOL * 4 if dtype == "float32" else BF16_TOL,
+           "vs ref.attention_ref")
+    _close(tfa.flash_attention_plain(tq, tk, tv, q_offset=q_offset,
+                                     block_q=128, block_k=64, **kw),
+           got, _tol(dtype), "128 x 64 tiles")
 
 
 def test_flash_plain_softcap():
@@ -364,11 +394,11 @@ def test_split_plan_and_k4_route_follow_the_shape_alone():
         return torch.empty((2, S, H, D), dtype=dtype, device="meta")
 
     bf16, f32 = torch.bfloat16, torch.float32
-    for D in (64, 128):
+    for D in (64, 128, 256):
         assert tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 7, 2, D))
         assert not tfa.tc_route(meta(f32, 100, 4, D), meta(f32, 7, 2, D))
         assert not tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 0, 2, D))
-    for D in (16, 32, 48, 96):
+    for D in (16, 32, 48, 96, 192):
         assert not tfa.tc_route(meta(bf16, 100, 4, D), meta(bf16, 7, 2, D))
 
 

@@ -23,10 +23,12 @@ K4 and K5 agree with their plain versions within 2e-5 in f32 and, in
 bf16, within 1e-3 plus 8e-3 of the output (one bf16 step): both compute in
 f32, in other summation orders, and round once at the end (K4's
 tensor-core route carries p as a bf16 hi + lo pair, about 2^-17). K4 cases
-in bf16 with head dim 64 or 128 take the tensor-core route, the rest the
-SIMT route; K5 cases of 600 or more slots are split across the cache.
+in bf16 with head dim 64, 128 or 256 take the tensor-core route, the rest
+the SIMT route; K5 cases of 600 or more slots are split across the cache.
 Head dim 256 with 10 q-heads per kv-head (recurrentgemma's local layers)
-takes K4's SIMT route at both dtypes and K5's wide instance; Whisper's
+takes K4's tensor-core route in bf16 (its 64-key instance, at the tile's
+edges: ragged, windowed, softcapped, offset, one query, rows with no valid
+key) and its SIMT route in f32, and K5's wide instance; Whisper's
 non-causal encoder and cross-attention shapes (``Sq = 1`` against a key
 count that is no multiple of the tile) run on both K4 routes.
 The reduced LM's logits on the card match the CPU's within 1e-4, and the
@@ -472,10 +474,9 @@ def test_k4_matches_plain(dev, Sq, Skv, G, D, causal, window, softcap,
                                               v.to(dev), **kw), dtype, "card")
 
 
-def test_k4_tensor_core_route_refuses_unaligned_inputs(dev):
-    """TMA needs 16-byte aligned q, k, v: a view 2 bytes off raises."""
-    shape = (1, 64, 2, 64)
-    n = 64 * 2 * 64
+def _refuses_unaligned(dev, D):
+    shape = (1, 64, 2, D)
+    n = 64 * 2 * D
     buf = torch.zeros(n + 1, dtype=torch.bfloat16, device=dev)
     q = buf[1:].view(shape)
     k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
@@ -484,6 +485,15 @@ def test_k4_tensor_core_route_refuses_unaligned_inputs(dev):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_cuda(q, k, k, causal=True)
     assert cuda_lib.LAUNCHES["flash_attention"] == 0
+
+
+def test_k4_tensor_core_route_refuses_unaligned_inputs(dev):
+    """TMA needs 16-byte aligned q, k, v: a view 2 bytes off raises."""
+    _refuses_unaligned(dev, 64)
+
+
+def test_k4_tensor_core_route_refuses_unaligned_inputs_at_head_dim_256(dev):
+    _refuses_unaligned(dev, 256)
 
 
 @pytest.mark.parametrize("q_dtype,c_dtype", [
@@ -535,7 +545,7 @@ def test_k5_matches_plain(dev, L, G, D, window, softcap, layout, q_dtype,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Skv,Hkv,G,D,causal,window", [
-    (130, 130, 1, 10, 256, True, 64),      # recurrentgemma local: SIMT D=256
+    (130, 130, 1, 10, 256, True, 64),      # recurrentgemma local, D=256
     (200, 200, 1, 10, 256, False, None),
     (300, 300, 2, 1, 64, False, None),     # whisper encoder: ragged tiles
     (1, 300, 2, 1, 64, False, None),       # cross-attention of a decode step
@@ -550,13 +560,52 @@ def test_k4_wide_heads_and_encdec_shapes(dev, Sq, Skv, Hkv, G, D, causal,
     k, v = (torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))
                              .astype(np.float32)).to(dtype) for _ in range(2))
     kw = dict(causal=causal, window=window)
-    assert fa.tc_route(q, k) == (dtype == torch.bfloat16 and D == 64)
+    assert fa.tc_route(q, k) == (dtype == torch.bfloat16 and D in (64, 256))
     cuda_lib.reset_launches()
     got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES["flash_attention"] == 1
     assert got.dtype == dtype and got.shape == q.shape
     _attn_close(got, fa.flash_attention_plain(q, k, v, **kw), dtype, "cpu")
+
+
+@pytest.mark.parametrize("Hkv,G", [(1, 10), (2, 2)])
+@pytest.mark.parametrize("Sq,Skv,causal,window,softcap,q_offset", [
+    (130, 130, True, None, 0.0, 0),        # ragged against 128 and 64
+    (300, 300, False, None, 0.0, 0),
+    (300, 300, True, 64, 0.0, 0),          # a window of one key tile
+    (130, 300, False, None, 30.0, 0),      # softcap, Sq != Skv
+    (300, 300, True, None, 30.0, 0),
+    (40, 104, True, 24, 0.0, 64),          # q_offset after a prefix
+    (200, 330, True, 100, 0.0, 130),
+    (1, 300, False, None, 0.0, 0),         # one query against the cache
+    (1, 300, True, None, 0.0, 299),
+    (64, 8, True, 4, 0.0, 0),              # rows with no valid key
+])
+def test_k4_tensor_core_route_at_head_dim_256(dev, Sq, Skv, Hkv, G, causal,
+                                              window, softcap, q_offset):
+    """bf16 at head dim 256 (recurrentgemma's local layers) takes the
+    tensor-core kernel's 128-query x 64-key instance: one launch, within
+    one bf16 step of the plain version."""
+    rng = np.random.default_rng(Sq + Skv + G)
+    B, D, dtype = 2, 256, torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((B, Sq, Hkv * G, D))
+                         .astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, Hkv, D))
+                             .astype(np.float32)).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    assert fa.tc_route(q, k)
+    cuda_lib.reset_launches()
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    _attn_close(got, want, dtype, "cpu")
+    if Skv == 8:                           # queries 11.. see no key: 0
+        assert torch.equal(got[:, 11:].cpu(), torch.zeros_like(want[:, 11:]))
 
 
 @pytest.mark.parametrize("q_dtype,c_dtype", [
