@@ -146,8 +146,11 @@ f32 caches):
     (also one query at position 2,047 against 2,048 keys, and S=1000 with
     window 256) and its SIMT route in f32; its tensor-core route at
     Whisper's encoder (S=1500, 16/16 heads, D=64, non-causal) and
-    cross-attention (Sq=1 and Sq=16 against 1,500 keys), and the SIMT
-    route at the same shapes in f32. (b) granite-moe-1b-a400m,
+    cross-attention (Sq=1 and Sq=16 against 1,500 keys, split over the
+    keys), and the SIMT route at the same shapes in f32; each case logged
+    with its ``split_plan`` count, which must be 1 at Whisper's encoder,
+    llama3.2-3b's and recurrentgemma's shapes and more at the
+    cross-attention. (b) granite-moe-1b-a400m,
     mamba2-2.7b and recurrentgemma-2b at full width and depth:
     ``forward_lm`` against ``prefill_into_cache`` on a 32-token prompt, rel
     < FWD_DEC_REL_BF16 (MoE at ``capacity_factor = n_experts``); for the
@@ -168,9 +171,10 @@ f32 caches):
     mamba2 and whisper cut to 2 layers, recurrentgemma to 3 (one whole
     recurrent, recurrent, local group); forward and 8 decode steps within
     CARD_CPU_REL. (e) K5 at recurrentgemma's L=128 and L=2048, K4 at
-    Whisper's encoder and cross-attention shapes and at D=256, S=2048
-    (the tensor-core route in bf16, the SIMT route in f32), timed as in
-    phase 11 with the plain version, SDPA and the bound. (f)
+    Whisper's encoder and cross-attention shapes (one decode step, Sq=1,
+    and the teacher-forced pass, Sq=16; ``n_split`` per row) and at
+    D=256, S=2048 (the tensor-core route in bf16, the SIMT route in f32),
+    timed as in phase 11 with the plain version, SDPA and the bound. (f)
     recurrentgemma-2b's eval step (``trainer.make_eval_step``) on (b)'s
     full-depth weights at B=1, S=2048 on an ``lm_batch``: K4 exactly once
     per local layer (8) and nothing else (counts reset just before one
@@ -2161,12 +2165,25 @@ def phase_zoo_kernels(report, dev):
         got = fa.flash_attention_cuda(q, k, v, **kw)
         want = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        n_split = fa.split_plan(q.dtype, B, Sq, Hq, Skv, D)
         tag = (f"K4 {route} {dtype} B={B} Sq={Sq} Skv={Skv} heads={Hq}/{Hkv}"
-               f" D={D} {kw}")
+               f" D={D} {kw} n_split={n_split}")
         err = _attn_err(tag, got, want, ATTN_TOL[dtype])
         errs["flash_attention"] = max(errs["flash_attention"], err)
         rows.append({"kernel": "K4", "route": route, "case": tag,
-                     "max_abs_err": err})
+                     "n_split": n_split, "max_abs_err": err})
+        log(f"phase 15 (a) {tag}: max abs err {err:.3g}")
+    # the split over the keys only where the unsplit grid is under one wave:
+    # Whisper's cross-attention, not its encoder, llama or recurrentgemma
+    bf16 = torch.bfloat16
+    for shape, want_split in (((1, 1500, 16, 1500, 64), False),
+                              ((1, 2048, 24, 2048, 128), False),
+                              ((1, 2048, 10, 2048, 256), False),
+                              ((1, 1, 16, 1500, 64), True),
+                              ((1, 16, 16, 1500, 64), True)):
+        n_split = fa.split_plan(bf16, *shape)
+        check((n_split > 1) == want_split, f"K4 split_plan{shape} gives "
+              f"{n_split}")
     Hq, Hkv, D = 10, 1, 256
     k5 = [  # q dtype, cache dtype, L, layout, window
         ("bfloat16", "float32", 128, "full", 2048),    # the engine's cache
@@ -2523,6 +2540,8 @@ def _zoo_timing(dev):
         ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False, "bfloat16"),
         ("whisper cross-attention, one decode step", 1, 1, 1500, 16, 16, 64,
          False, "bfloat16"),
+        ("whisper cross-attention, teacher-forced", 1, 16, 1500, 16, 16, 64,
+         False, "bfloat16"),
         ("recurrentgemma local, tensor-core D=256", 1, 2048, 2048, 10, 1,
          256, True, "bfloat16"),
         ("recurrentgemma local, SIMT D=256 (f32)", 1, 2048, 2048, 10, 1,
@@ -2552,8 +2571,10 @@ def _zoo_timing(dev):
         n_bytes = q.element_size() * 2 * B * (Sq * Hq + Skv * Hkv) * D
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S
                               if dtype == "bfloat16" else F32_FLOP_PER_S)
+        n_split = fa.split_plan(q.dtype, B, Sq, Hq, Skv, D)
         rows.append({"kernel": "K4", "at": f"{tag}: B={B} Sq={Sq} Skv={Skv}"
-                     f" Hq={Hq} Hkv={Hkv} D={D} {dtype} causal={causal}",
+                     f" Hq={Hq} Hkv={Hkv} D={D} {dtype} causal={causal} "
+                     f"n_split={n_split}", "n_split": n_split,
                      "route": route, "ms": k_ms, "plain_ms": p_ms,
                      "sdpa_ms": l_ms, "flops": flops, "bytes": n_bytes,
                      "bound_ms": b_ms, "bound_by": b_by})

@@ -50,6 +50,45 @@
 //   then releases the stage. The output is stored from registers with row
 //   masks.
 //
+// Split over the keys (flash decoding for K4's general function): where
+// the grid above holds fewer CTAs than the card has SMs (Whisper's
+// cross-attention: one query row against 1,500 keys, 16 heads, 16 CTAs on
+// 132 SMs, each walking 12 key tiles in series), the wrapper's
+// `split_plan` cuts the keys into n_split <= 8 contiguous ranges of
+// `split_keys` keys, a multiple of 128 so that both tile sizes nest in a
+// range, and the grid gains the split on z (b * n_split + split). Each CTA
+// runs the loop above over the live tiles of its range and stores its
+// unnormalised f32 acc with its m (log2 units) and l, for query rows < Sq
+// only, to f32 scratch the wrapper allocates; a range with no live tile
+// stores m = MASK_VALUE, l = 0, acc = 0. A combine kernel merges the
+// ranges of each (batch row, query row, q-head) in split order, so the
+// result is the same bits on every run:
+//   m = max m_s,  o = sum 2^(m_s - m) acc_s / max(sum 2^(m_s - m) l_s, 1e-30)
+// It is launched with programmatic dependent launch: the split kernel
+// lets it launch at its start, and it waits at `griddepcontrol.wait` for
+// the split kernel's stores. Where every query row of a split CTA lies in
+// its first 64 (a decode step's one query, the teacher-forced pass's 16),
+// the second warpgroup would only compute rows that are never stored:
+// both warpgroups then take those 64 rows, on alternate tiles of the
+// range, each with its own m, l and acc, and merge through shared memory
+// (the drained K/V ring) before the store, so the CTA's chain is half its
+// tiles; warps whose 16 rows all lie past Sq skip their softmax. The
+// unsplit instance (SPLIT = false) keeps none of this: the grids that fill
+// the card run the loop above and its epilogue alone.
+//
+// Where the merge runs, measured at Whisper's cross-attention with
+// scripts/k4_turns.py (H100 80GB HBM3, 700 W; CUDA events around each
+// call, the L2 evicted before it, each in its own call as the design grew;
+// the unsplit kernel 36.0-36.2 us): this combine kernel, loading every
+// range at once, 14.2-14.3 us (SDPA 14.1); the same kernel loading one
+// range at a time, 15.9 us; the last CTA of each tile merging in place
+// after a fence and an atomic counter, 16.1-16.5 us with one range at a
+// time and 15.0-15.3 with all at once; the ranges of a tile as one
+// thread-block cluster merging over distributed shared memory, 17.2 us
+// (clusters of 6 CTAs of one SM each do not all fit in one wave). The
+// merge costs ~2.5 us of the kernel's ~10 us wherever it runs: stores, a
+// fence or the grid's end, L2 reads.
+//
 // The key tile BK is per instance (`Smem<HD>::BK`), so that a consumer
 // thread holds at most 192 accumulator and P registers (o_acc HD/2, s_acc
 // BK/2, P hi + lo BK/2) under its 240:
@@ -71,6 +110,9 @@ namespace {
 constexpr int BQ = 128;           // query rows per CTA (2 consumer warpgroups)
 constexpr int STAGES = 2;         // K/V tiles in flight
 constexpr int NT = 384;           // producer + 2 consumer warpgroups
+constexpr int SPLIT_KEYS = 128;   // a split's key range is a multiple of it
+constexpr int MAX_SPLIT = 8;      // ranges at most (the wrapper's plan)
+constexpr int COMBINE_THREADS = 256;
 constexpr float MASK_VALUE = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -133,6 +175,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// barrier 1 over the `n` threads of the consumer warpgroups still running
+// (the producer has left)
+__device__ __forceinline__ void consumers_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -348,13 +396,16 @@ struct Smem {                      // byte offsets from a 1024-aligned base
   static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-template <int HD>
+// SPLIT only: `part` is f32 scratch of the n_split ranges, acc
+// (n_split, B, Sq, Hq, HD), then m and l (n_split, B, Sq, Hq) each
+template <int HD, bool SPLIT>
 __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    int Sq, int Skv, int Hq, int Hkv, int q_offset, int causal, int window,
-    float softcap, float scale) {
+    float* __restrict__ part, int Sq, int Skv, int Hq, int Hkv, int q_offset,
+    int causal, int window, float softcap, float scale, int n_split,
+    int split_keys) {
   using L = Smem<HD>;
   constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -364,18 +415,28 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
   const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + STAGES);
 
   // heaviest causal q-blocks first: q-blocks run in reverse on grid y
-  const int h = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = SPLIT ? blockIdx.z / n_split : blockIdx.z;
+  const int split = SPLIT ? blockIdx.z % n_split : 0;
   const int q_start = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int hk = h / (Hq / Hkv);
   const int q_abs = q_offset + q_start;
-  // k tiles some query of this block can reach (the Pallas live guard)
+  // k tiles of this CTA's key range some query of the block can reach (the
+  // Pallas live guard)
   int kb_end = (Skv + BK - 1) / BK;
-  if (causal) kb_end = min(kb_end, (q_abs + BQ - 1) / BK + 1);
   int kb_begin = 0;
+  if constexpr (SPLIT) {
+    // the combine kernel may launch now; it waits for this grid's stores
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    kb_begin = split * (split_keys / BK);
+    kb_end = min(kb_end, kb_begin + split_keys / BK);
+  }
+  if (causal) kb_end = min(kb_end, (q_abs + BQ - 1) / BK + 1);
   if (window >= 0) {
     // live tiles: k_start + BK - 1 >= q_abs - window + 1
     const int lo = q_abs - window + 2 - BK;
-    if (lo > 0) kb_begin = (lo + BK - 1) / BK;
+    if (SPLIT && lo > 0) kb_begin = max(kb_begin, (lo + BK - 1) / BK);
+    else if (lo > 0) kb_begin = (lo + BK - 1) / BK;
   }
   const int n_tiles = max(kb_end - kb_begin, 0);
 
@@ -393,7 +454,15 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
   if (wg == 0) {
     // ---- producer: one thread keeps the ring filled
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (tid == 0) {
+    if (tid == 0 && (!SPLIT || n_tiles > 0)) {
+      if constexpr (SPLIT) {   // the descriptors, before their first use
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&tm_q)) : "memory");
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&tm_k)) : "memory");
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&tm_v)) : "memory");
+      }
       mbar_expect_tx(q_full, L::Q_BYTES);
       for (int c = 0; c < L::CHUNKS; ++c)
         tma_load_4d(sQ + c * BQ * 128, &tm_q, q_full, 64 * c, h, q_start, b);
@@ -413,13 +482,20 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
     return;
   }
 
-  // ---- consumers: warpgroup g owns query rows 64 g .. 64 g + 63
+  // ---- consumers: warpgroup g owns query rows 64 g .. 64 g + 63; in pair
+  // mode both own rows 0 .. 63, warpgroup g the tiles it with it % 2 == g
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int g = wg - 1;
+  const bool pair = SPLIT && Sq - q_start <= 64;
+  const int g_rows = pair ? 0 : g;
   const int lane = tid & 31, warp = (tid >> 5) & 3, tq = lane & 3;
   // this thread's rows of the block: row0 and row0 + 8 (the wgmma fragment)
-  const int row0 = 64 * g + 16 * warp + (lane >> 2);
-  const int q_min = q_abs + 64 * g, q_max = q_min + 63;
+  const int row0 = 64 * g_rows + 16 * warp + (lane >> 2);
+  const int q_min = q_abs + 64 * g_rows, q_max = q_min + 63;
+  // SPLIT: a warp whose 16 rows all lie at or past Sq has nothing to store;
+  // it skips its softmax (P = 0), which leaves the SM's exp2 and bf16
+  // conversions to the live warps (one a warpgroup at Sq <= 16)
+  const bool warp_dead = SPLIT && q_start + 64 * g_rows + 16 * warp >= Sq;
 
   float s_acc[BK / 2], o_acc[HD / 2];
 #pragma unroll
@@ -429,14 +505,15 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
   float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
   // Q rows of this warpgroup: K-major, 128-byte swizzle, 8-row groups 1 KB
   // apart
-  const uint64_t q_desc = sw128_desc(sQ + 64 * g * 128, 16, 1024);
+  const uint64_t q_desc = sw128_desc(sQ + 64 * g_rows * 128, 16, 1024);
 
-  mbar_wait(q_full, 0);
+  if (!SPLIT || n_tiles > 0) mbar_wait(q_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % STAGES;
     const int k_start = (kb_begin + it) * BK;
     mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
-    const bool live = !(causal && k_start > q_max) &&
+    const bool live = (!pair || (it & 1) == g) &&
+                      !(causal && k_start > q_max) &&
                       !(window >= 0 && k_start + BK - 1 <= q_min - window);
     if (live) {
       const uint32_t k_tile = sK + s * L::KV_BYTES;
@@ -454,63 +531,70 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
       wgmma_wait_all();
       fence_regs(s_acc);
 
-      // scores in log2 units; masks only where the tile needs them.
-      // s_acc[4 i + e]: row row0 + 8 (e >> 1),
-      //                 key k_start + 8 i + 2 tq + (e & 1)
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        float x = s_acc[i] * scale;
-        if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
-        s_acc[i] = x * LOG2E;
-      }
-      const bool full_tile = k_start + BK <= Skv &&
-                             (!causal || k_start + BK - 1 <= q_min) &&
-                             (window < 0 || q_max - k_start < window);
-      if (!full_tile) {
-#pragma unroll
-        for (int i = 0; i < BK / 2; ++i) {
-          const int kpos = k_start + 8 * (i >> 2) + 2 * tq + (i & 1);
-          const int qpos = q_abs + row0 + 8 * ((i >> 1) & 1);
-          const bool ok = kpos < Skv && (!causal || qpos >= kpos) &&
-                          (window < 0 || qpos - kpos < window);
-          if (!ok) s_acc[i] = MASK_VALUE;
-        }
-      }
-      float m_new[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i)
-        m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s_acc[i]);
-      float alpha[2], m_use[2], row_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {      // a row's BK keys sit on 4 lanes
-        m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-        m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-        alpha[r] = exp2f(m[r] - m_new[r]);
-        // no valid key yet: every score is MASK_VALUE and p must be 0
-        m_use[r] = m_new[r] == MASK_VALUE ? 0.f : m_new[r];
-        m[r] = m_new[r];
-      }
       // P as the A operand of BK/16 k-steps: register j of step kk holds
       // s_acc[8 kk + 2 j], s_acc[8 kk + 2 j + 1] (row j & 1)
       uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+      if (!warp_dead) {
+        // scores in log2 units; masks only where the tile needs them.
+        // s_acc[4 i + e]: row row0 + 8 (e >> 1),
+        //                 key k_start + 8 i + 2 tq + (e & 1)
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+        for (int i = 0; i < BK / 2; ++i) {
+          float x = s_acc[i] * scale;
+          if (softcap != 0.f) x = tanhf(x / softcap) * softcap;
+          s_acc[i] = x * LOG2E;
+        }
+        const bool full_tile = k_start + BK <= Skv &&
+                               (!causal || k_start + BK - 1 <= q_min) &&
+                               (window < 0 || q_max - k_start < window);
+        if (!full_tile) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = j & 1;
-          const float p0 = exp2f(s_acc[8 * kk + 2 * j] - m_use[r]);
-          const float p1 = exp2f(s_acc[8 * kk + 2 * j + 1] - m_use[r]);
-          row_sum[r] += p0 + p1;
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-          const float2 hf = __bfloat1622float2(hi);
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-          p_hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi);
-          p_lo[kk][j] = *reinterpret_cast<const uint32_t*>(&lo);
+          for (int i = 0; i < BK / 2; ++i) {
+            const int kpos = k_start + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int qpos = q_abs + row0 + 8 * ((i >> 1) & 1);
+            const bool ok = kpos < Skv && (!causal || qpos >= kpos) &&
+                            (window < 0 || qpos - kpos < window);
+            if (!ok) s_acc[i] = MASK_VALUE;
+          }
+        }
+        float m_new[2] = {m[0], m[1]};
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s_acc[i]);
+        float alpha[2], m_use[2], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {      // a row's BK keys sit on 4 lanes
+          m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
+          m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
+          alpha[r] = exp2f(m[r] - m_new[r]);
+          // no valid key yet: every score is MASK_VALUE and p must be 0
+          m_use[r] = m_new[r] == MASK_VALUE ? 0.f : m_new[r];
+          m[r] = m_new[r];
         }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + row_sum[r];
+        for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+          for (int j = 0; j < 4; ++j) {
+            const int r = j & 1;
+            const float p0 = exp2f(s_acc[8 * kk + 2 * j] - m_use[r]);
+            const float p1 = exp2f(s_acc[8 * kk + 2 * j + 1] - m_use[r]);
+            row_sum[r] += p0 + p1;
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+            const float2 hf = __bfloat1622float2(hi);
+            const __nv_bfloat162 lo = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
+            p_hi[kk][j] = *reinterpret_cast<const uint32_t*>(&hi);
+            p_lo[kk][j] = *reinterpret_cast<const uint32_t*>(&lo);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + row_sum[r];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p_hi[kk][j] = p_lo[kk][j] = 0u;
+      }
 
       // O += P_hi V + P_lo V; V MN-major: 8-key groups 1 KB apart, 64-column
       // chunks one tile of BK rows apart
@@ -529,26 +613,130 @@ __global__ void __launch_bounds__(NT, 1) flash_tc_kernel(
     if (lane == 0) mbar_arrive(empty0 + 8 * s);   // this warp is done with it
   }
 
-  // o = acc / l; o_acc[4 i + e]: row row0 + 8 (e >> 1),
-  //                             column 8 i + 2 tq + (e & 1)
+  if (pair) {
+    // warpgroup 1 hands its m, l (this lane's part) and acc to the thread
+    // of warpgroup 0 that holds the same fragment, through the K/V ring,
+    // which every tile's wait has drained
+    float* xch = reinterpret_cast<float*>(smem_raw + (sK - smem_u32(smem_raw)));
+    const int t = tid & 127;
+    consumers_sync(256);
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) xch[i * 128 + t] = o_acc[i];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xch[(HD / 2 + r) * 128 + t] = m[r];
+        xch[(HD / 2 + 2 + r) * 128 + t] = l[r];
+      }
+    }
+    consumers_sync(256);
+    float f_own[2], f_other[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_other = xch[(HD / 2 + r) * 128 + t];
+      const float m_new = fmaxf(m[r], m_other);
+      f_own[r] = exp2f(m[r] - m_new);
+      f_other[r] = exp2f(m_other - m_new);
+      l[r] = l[r] * f_own[r] + xch[(HD / 2 + 2 + r) * 128 + t] * f_other[r];
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i)
+      o_acc[i] = o_acc[i] * f_own[(i >> 1) & 1] +
+                 xch[i * 128 + t] * f_other[(i >> 1) & 1];
+  }
+
+  // o_acc[4 i + e]: row row0 + 8 (e >> 1), column 8 i + 2 tq + (e & 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
   }
-  const long long q_stride = (long long)Hq * HD;
+  if constexpr (SPLIT) {
+    // this range's m, l and unnormalised acc, for the combine kernel (in
+    // pair mode warpgroup 0 holds them)
+    const long long rows = (long long)(gridDim.z / n_split) * Sq * Hq;
+    float* part_m = part + n_split * rows * HD;
+    float* part_l = part_m + n_split * rows;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int sq = q_start + row0 + 8 * r;
-    if (sq >= Sq) continue;
-    __nv_bfloat16* orow = o + ((long long)b * Sq + sq) * q_stride +
-                          (long long)h * HD + 2 * tq;
+    for (int r = 0; r < 2; ++r) {
+      const int sq = q_start + row0 + 8 * r;
+      if (sq >= Sq || (pair && g == 1)) continue;
+      const long long row = split * rows + ((long long)b * Sq + sq) * Hq + h;
+      float* arow = part + row * HD + 2 * tq;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(
-          o_acc[4 * i + 2 * r] / l[r], o_acc[4 * i + 2 * r + 1] / l[r]);
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<float2*>(arow + 8 * i) =
+            make_float2(o_acc[4 * i + 2 * r], o_acc[4 * i + 2 * r + 1]);
+      if (tq == 0) {
+        part_m[row] = m[r];
+        part_l[row] = l[r];
+      }
+    }
+  } else {
+    // o = acc / l
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
+    const long long q_stride = (long long)Hq * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int sq = q_start + row0 + 8 * r;
+      if (sq >= Sq) continue;
+      __nv_bfloat16* orow = o + ((long long)b * Sq + sq) * q_stride +
+                            (long long)h * HD + 2 * tq;
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
+            __floats2bfloat162_rn(o_acc[4 * i + 2 * r] / l[r],
+                                  o_acc[4 * i + 2 * r + 1] / l[r]);
+    }
   }
+}
+
+// merges the n_split ranges of `rows` (batch row, query row, q-head) rows in
+// split order; a thread takes 4 columns of one row and loads the partials
+// of every range at once (n_split <= MAX_SPLIT: one round trip). Launched
+// with programmatic dependent launch behind the split kernel: it waits
+// here for that grid's stores.
+template <int HD>
+__global__ void __launch_bounds__(COMBINE_THREADS) flash_tc_combine_kernel(
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
+    long long rows, int n_split) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long e = (long long)blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (e >= rows * (HD / 4)) return;
+  const long long row = e / (HD / 4);
+  const int col = (int)(e % (HD / 4)) * 4;
+  const float* part_m = part + n_split * rows * HD;
+  const float* part_l = part_m + n_split * rows;
+  float mb[MAX_SPLIT], lb[MAX_SPLIT];
+  float4 xb[MAX_SPLIT];
+#pragma unroll
+  for (int sp = 0; sp < MAX_SPLIT; ++sp) {
+    const long long at = sp * rows + row;
+    const bool in = sp < n_split;
+    mb[sp] = in ? part_m[at] : MASK_VALUE;
+    lb[sp] = in ? part_l[at] : 0.f;
+    xb[sp] = in ? *reinterpret_cast<const float4*>(part + at * HD + col)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float mx = MASK_VALUE, l_sum = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int sp = 0; sp < MAX_SPLIT; ++sp) mx = fmaxf(mx, mb[sp]);
+#pragma unroll
+  for (int sp = 0; sp < MAX_SPLIT; ++sp) {
+    if (sp >= n_split) break;
+    const float f = exp2f(mb[sp] - mx);
+    l_sum += lb[sp] * f;
+    a[0] += xb[sp].x * f;
+    a[1] += xb[sp].y * f;
+    a[2] += xb[sp].z * f;
+    a[3] += xb[sp].w * f;
+  }
+  l_sum = fmaxf(l_sum, 1e-30f);
+  __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(o + row * HD + col);
+  orow[0] = __floats2bfloat162_rn(a[0] / l_sum, a[1] / l_sum);
+  orow[1] = __floats2bfloat162_rn(a[2] / l_sum, a[3] / l_sum);
 }
 
 // ---------------------------------------------------------------------------
@@ -598,47 +786,91 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD, bool SPLIT>
+int launch_instance(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                    const CUtensorMap& tm_v, void* o, float* part, int B,
+                    int Sq, int Skv, int Hq, int Hkv, int q_offset, int causal,
+                    int window, float softcap, float scale, int n_split,
+                    int split_keys, cudaStream_t stream) {
+  const int smem = Smem<HD>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<HD, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B * n_split);
+  flash_tc_kernel<HD, SPLIT><<<grid, NT, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), part, Sq, Skv, Hq,
+      Hkv, q_offset, causal, window, softcap, scale, n_split, split_keys);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int Hq, int Hkv, int q_offset, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* part,
+           int B, int Sq, int Skv, int Hq, int Hkv, int q_offset, int causal,
+           int window, float softcap, float scale, int n_split,
+           int split_keys, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, B, Sq, Hq, HD, BQ) ||
       !make_map(&tm_k, k, B, Skv, Hkv, HD, Smem<HD>::BK) ||
       !make_map(&tm_v, v, B, Skv, Hkv, HD, Smem<HD>::BK))
     return (int)cudaErrorInvalidValue;
-  const int smem = Smem<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
-  flash_tc_kernel<HD><<<grid, NT, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
-      q_offset, causal, window, softcap, scale);
-  return (int)cudaGetLastError();
+  if (n_split == 1)
+    return launch_instance<HD, false>(tm_q, tm_k, tm_v, o, nullptr, B, Sq,
+                                      Skv, Hq, Hkv, q_offset, causal, window,
+                                      softcap, scale, 1, 0, stream);
+  const int status = launch_instance<HD, true>(
+      tm_q, tm_k, tm_v, o, part, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+      window, softcap, scale, n_split, split_keys, stream);
+  if (status != (int)cudaSuccess) return status;
+  // the combine, allowed to launch while the split kernel runs
+  const long long rows = (long long)B * Sq * Hq;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((rows * (HD / 4) + COMBINE_THREADS - 1) /
+                                COMBINE_THREADS));
+  cfg.blockDim = dim3(COMBINE_THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, flash_tc_combine_kernel<HD>,
+                                 static_cast<const float*>(part),
+                                 static_cast<__nv_bfloat16*>(o), rows,
+                                 n_split);
 }
 
 }  // namespace
 
 // bf16 q, k, v with head dim 64, 128 or 256, Skv > 0, 16-byte aligned
-// pointers
+// pointers. With n_split > 1 (at most MAX_SPLIT), the keys are cut into
+// ranges of `split_keys` (a positive multiple of 128), none of them empty,
+// and `part` is f32 scratch of n_split * B * Sq * Hq * (D + 2) floats.
 extern "C" int repro_flash_attention_tc(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
-    int Skv, int Hq, int Hkv, int D, int q_offset, int causal, int window,
-    float softcap, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* part, int B,
+    int Sq, int Skv, int Hq, int Hkv, int D, int q_offset, int causal,
+    int window, float softcap, float scale, int n_split, int split_keys,
+    void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || Skv <= 0 ||
-      (Sq + BQ - 1) / BQ > 65535 || B > 65535)
+      (Sq + BQ - 1) / BQ > 65535 || n_split < 1 || n_split > MAX_SPLIT ||
+      (long long)B * n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (n_split > 1 &&
+      (part == nullptr || split_keys <= 0 || split_keys % SPLIT_KEYS != 0 ||
+       (long long)(n_split - 1) * split_keys >= Skv ||
+       (long long)n_split * split_keys < Skv))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   if (D == 256)
-    return launch<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
-                       window, softcap, scale, s);
+    return launch<256>(q, k, v, o, p, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+                       window, softcap, scale, n_split, split_keys, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
-                       window, softcap, scale, s);
+    return launch<128>(q, k, v, o, p, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+                       window, softcap, scale, n_split, split_keys, s);
   if (D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, q_offset, causal,
-                      window, softcap, scale, s);
+    return launch<64>(q, k, v, o, p, B, Sq, Skv, Hq, Hkv, q_offset, causal,
+                      window, softcap, scale, n_split, split_keys, s);
   return (int)cudaErrorInvalidValue;
 }

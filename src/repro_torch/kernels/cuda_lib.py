@@ -59,8 +59,8 @@ _SIGNATURES = {
         [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
          _VP],
     "repro_flash_attention_tc":
-        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-         _VP],
+        [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _F, _I, _I, _VP],
     "repro_decode_attention":
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
          _I, _I, _F, _F, _I, _I, _VP],

@@ -220,6 +220,144 @@ def test_flash_plain_fully_masked_rows_are_zero():
 
 
 # ---------------------------------------------------------------------------
+# K4 split over the keys (split_plan and the plain version's combine)
+# ---------------------------------------------------------------------------
+def _split_for(B, Sq, Hq, Skv, D):
+    """The split the plan gives these shapes on the tensor-core route (bf16),
+    forced on f32 inputs too so that the f32 cases run the same ranges."""
+    return tfa.split_plan(torch.bfloat16, B, Sq, Hq, Skv, D)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", [(64, 1), (64, 10), (256, 1), (256, 10)])
+@pytest.mark.parametrize("Sq,Skv", [(1, 300), (1, 700), (16, 300),
+                                    (16, 700)])
+def test_flash_plain_split_matches_pallas_and_oracle(Sq, Skv, D, G, dtype):
+    """Few queries against many keys, non-causal (Whisper's
+    cross-attention, reduced): the plain K4 cut into ``split_plan``'s key
+    ranges and combined still matches the unsplit Pallas kernel and the
+    oracle."""
+    Hkv = 2 if G == 1 else 1
+    n_split = _split_for(1, Sq, Hkv * G, Skv, D)
+    assert n_split > 1
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(Sq + Skv + D + G, 1, Sq, Skv, Hkv,
+                                        G, D, dtype)
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=False,
+                                    n_split=n_split)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    kernel = pallas_flash(jq, jk, jv, causal=False, block_q=16, block_k=128)
+    _close(got, kernel, _tol(dtype), "vs the Pallas kernel")
+    oracle = attention_ref(jq, jk, jv, causal=False)
+    _close(got, oracle, _tol(dtype) * 4 if dtype == "float32" else BF16_TOL,
+           "vs ref.attention_ref")
+
+
+SPLIT_MASK_CASES = [
+    # Sq, Skv, Hkv, G, D, causal, window, softcap, q_offset
+    (16, 700, 1, 10, 256, True, None, 0.0, 200),   # ranges past 215 dead
+    (16, 700, 1, 10, 64, True, 40, 0.0, 684),      # only the last range live
+    (16, 700, 2, 1, 64, False, None, 20.0, 0),     # softcap
+    (16, 300, 1, 10, 256, True, 8, 0.0, 296),      # rows 11.. see no key
+    (1, 300, 2, 1, 64, True, 8, 0.0, 400),         # the one row sees none
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,Hkv,G,D,causal,window,softcap,q_offset",
+                         SPLIT_MASK_CASES)
+def test_flash_plain_split_masks_dead_ranges_and_empty_rows(
+        Sq, Skv, Hkv, G, D, causal, window, softcap, q_offset, dtype):
+    """Causal with ``q_offset``, a window and the softcap under the split:
+    ranges that no query reaches contribute nothing, and a row with no
+    valid key in any range is exactly 0 (the oracle averages such a row
+    instead, so it is held to the rows that have a key)."""
+    n_split = _split_for(1, Sq, Hkv * G, Skv, D)
+    assert n_split > 1
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(Skv + q_offset + D, 1, Sq, Skv, Hkv,
+                                        G, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    got = tfa.flash_attention_plain(tq, tk, tv, n_split=n_split, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    qpos = q_offset + np.arange(Sq)
+    has_key = np.minimum(qpos, Skv - 1) > (
+        qpos - window if window is not None else -1) if causal \
+        else np.ones(Sq, bool)
+    empty = ~has_key
+    assert torch.equal(got[:, empty], torch.zeros_like(got[:, empty]))
+    oracle = np.asarray(attention_ref(jq, jk, jv, **kw), np.float32)
+    _close(got[:, has_key], oracle[:, has_key],
+           F32_TOL * 4 if dtype == "float32" else BF16_TOL,
+           "vs ref.attention_ref")
+    if q_offset == 0:                # the Pallas wrapper drops q_offset
+        _close(got, pallas_flash(jq, jk, jv, causal=causal, window=window,
+                                 softcap=softcap, block_q=16, block_k=128),
+               _tol(dtype), "vs the Pallas kernel")
+
+
+@pytest.mark.parametrize("Sq,Skv,Hkv,G,D,causal,window,softcap,q_offset", [
+    (1, 1500, 4, 1, 64, False, None, 0.0, 0),     # cross-attention, reduced
+    (16, 700, 1, 10, 256, True, 300, 30.0, 600),
+    (40, 300, 2, 2, 128, True, None, 0.0, 260),
+])
+def test_flash_plain_split_equals_unsplit_to_f32_rounding(
+        Sq, Skv, Hkv, G, D, causal, window, softcap, q_offset):
+    """On f32 inputs the plan's split and one range differ only by f32
+    rounding: the same sums taken in another grouping."""
+    n_split = _split_for(2, Sq, Hkv * G, Skv, D)
+    assert n_split > 1
+    (_, tq), (_, tk), (_, tv) = _qkv(Sq + Skv, 2, Sq, Skv, Hkv, G, D,
+                                     "float32")
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    one = tfa.flash_attention_plain(tq, tk, tv, n_split=1, **kw)
+    split = tfa.flash_attention_plain(tq, tk, tv, n_split=n_split, **kw)
+    assert float((split - one).abs().max() / one.abs().max()) <= 1e-6
+    assert torch.equal(tfa.flash_attention_plain(tq, tk, tv, **kw), one)
+
+
+def test_k4_split_plan_follows_the_shape_alone():
+    """K4's split count is a function of dtype and shape: 1 off the
+    tensor-core route and where the unsplit grid fills the card; more at
+    Whisper's cross-attention; within one wave and one cluster of at most
+    ``SPLIT_MAX`` CTAs, and no range empty."""
+    plan, keys = tfa.split_plan, tfa.split_keys
+    bf16, f32 = torch.bfloat16, torch.float32
+    # off the tensor-core route: f32, or a head dim it does not take
+    assert plan(f32, 1, 1, 16, 1500, 64) == 1
+    for D in (16, 32, 96, 192):
+        assert plan(bf16, 1, 1, 16, 1500, D) == 1
+    # the unsplit grid already fills the card: llama3.2-3b (384 CTAs),
+    # recurrentgemma's local layers (160), Whisper's encoder (192)
+    assert plan(bf16, 1, 2048, 24, 2048, 128) == 1
+    assert plan(bf16, 1, 2048, 10, 2048, 256) == 1
+    assert plan(bf16, 1, 1500, 16, 1500, 64) == 1
+    # Whisper's cross-attention, one decode step and teacher-forced: 6
+    # ranges of 256 keys, 96 CTAs
+    for Sq in (1, 16):
+        assert plan(bf16, 1, Sq, 16, 1500, 64) == 6
+    assert keys(1500, 6) == 256
+    assert plan(bf16, 1, 1, 10, 2048, 256) == 8   # recurrentgemma, Sq=1
+    for B in (1, 2, 3, 8):
+        for Sq in (1, 16, 128, 129, 300):
+            for Hq in (1, 4, 10, 16, 24):
+                for Skv in (1, 100, 128, 129, 300, 1500, 4096, 32768):
+                    for D in (64, 256):
+                        n = plan(bf16, B, Sq, Hq, Skv, D)
+                        base = B * Hq * -(-Sq // 128)
+                        assert 1 <= n <= tfa.SPLIT_MAX
+                        assert n == 1 or n * base <= tfa.SPLIT_SMS
+                        if base >= tfa.SPLIT_SMS:
+                            assert n == 1
+                        span = keys(Skv, n)
+                        assert span % 128 == 0
+                        # n ranges of `span` keys, the last one shorter at
+                        # most, none empty
+                        assert (n - 1) * span < Skv <= n * span or n == 1
+                        assert plan(f32, B, Sq, Hq, Skv, D) == 1
+
+
+# ---------------------------------------------------------------------------
 # the xla path: chunked attention
 # ---------------------------------------------------------------------------
 CHUNKED_CASES = [

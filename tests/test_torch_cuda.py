@@ -24,7 +24,10 @@ bf16, within 1e-3 plus 8e-3 of the output (one bf16 step): both compute in
 f32, in other summation orders, and round once at the end (K4's
 tensor-core route carries p as a bf16 hi + lo pair, about 2^-17). K4 cases
 in bf16 with head dim 64, 128 or 256 take the tensor-core route, the rest
-the SIMT route; K5 cases of 600 or more slots are split across the cache.
+the SIMT route; where that route's grid is under one wave (few queries
+against many keys at B=1, Whisper's cross-attention) it is split over the
+keys, with dead ranges, rows with no valid key (exactly 0) and the same
+bits on every launch; K5 cases of 600 or more slots are split across the cache.
 Head dim 256 with 10 q-heads per kv-head (recurrentgemma's local layers)
 takes K4's tensor-core route in bf16 (its 64-key instance, at the tile's
 edges: ragged, windowed, softcapped, offset, one query, rows with no valid
@@ -606,6 +609,87 @@ def test_k4_tensor_core_route_at_head_dim_256(dev, Sq, Skv, Hkv, G, causal,
     _attn_close(got, want, dtype, "cpu")
     if Skv == 8:                           # queries 11.. see no key: 0
         assert torch.equal(got[:, 11:].cpu(), torch.zeros_like(want[:, 11:]))
+
+
+def _k4_split_inputs(seed, Sq, Skv, Hkv, G, D):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((1, Sq, Hkv * G, D))
+                         .astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((1, Skv, Hkv, D))
+                             .astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("G", [1, 10])
+@pytest.mark.parametrize("Skv", [300, 1500])
+@pytest.mark.parametrize("Sq", [1, 16, 40])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_k4_split_over_keys_matches_plain(dev, D, Sq, Skv, G):
+    """Few queries against many keys (Whisper's cross-attention at B=1)
+    take the tensor-core route split over the keys: one launch counted,
+    within ATTN_TOL of the plain version, which runs the same split."""
+    Hkv = 2 if G == 1 else 1
+    q, k, v = _k4_split_inputs(D + Sq + Skv + G, Sq, Skv, Hkv, G, D)
+    assert fa.tc_route(q, k)
+    assert fa.split_plan(q.dtype, 1, Sq, Hkv * G, Skv, D) > 1
+    cuda_lib.reset_launches()
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=False)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q.to(dev), k.to(dev), v.to(dev),
+                                    causal=False)
+    _attn_close(got, want, torch.bfloat16, "card")
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Skv,Hkv,G,causal,window,softcap,q_offset", [
+    (16, 1500, 1, 10, True, None, 0.0, 200),    # ranges past 215 dead
+    (40, 1500, 2, 1, True, 100, 0.0, 1460),     # only the last range live
+    (16, 1500, 2, 1, False, None, 30.0, 0),     # softcap
+    (40, 300, 1, 10, True, 8, 0.0, 280),        # rows 27.. see no key
+    (1, 300, 2, 1, True, 8, 0.0, 400),          # the one row sees none
+    (1, 1500, 1, 10, True, None, 0.0, 1499),    # a decode step's query
+])
+def test_k4_split_masks_dead_ranges_and_empty_rows(
+        dev, D, Sq, Skv, Hkv, G, causal, window, softcap, q_offset):
+    """Under the split: causal with ``q_offset`` (dead trailing ranges), a
+    window (one live range), the softcap, and rows with no valid key in
+    any range, which are exactly 0."""
+    q, k, v = _k4_split_inputs(D + Sq + Skv + q_offset, Sq, Skv, Hkv, G, D)
+    assert fa.split_plan(q.dtype, 1, Sq, Hkv * G, Skv, D) > 1
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    cuda_lib.reset_launches()
+    got = fa.flash_attention(q.to(dev), k.to(dev), v.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 1
+    assert torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q.to(dev), k.to(dev), v.to(dev), **kw)
+    _attn_close(got, want, torch.bfloat16, "card")
+    qpos = q_offset + np.arange(Sq)
+    lo = qpos - window if window is not None else np.full(Sq, -1)
+    empty = torch.from_numpy(~(np.minimum(qpos, Skv - 1) > lo))
+    assert torch.equal(got[:, empty].cpu(),
+                       torch.zeros_like(got[:, empty].cpu()))
+
+
+@pytest.mark.parametrize("Sq,D", [(1, 64), (16, 64), (1, 256)])
+def test_k4_split_is_deterministic(dev, Sq, D):
+    """The combine merges the ranges in split order: two launches at a split
+    shape give the same bits."""
+    G = 10 if D == 256 else 1
+    Hkv = 1 if D == 256 else 16
+    q, k, v = (x.to(dev) for x in _k4_split_inputs(Sq, Sq, 1500, Hkv, G, D))
+    assert fa.split_plan(q.dtype, 1, Sq, Hkv * G, 1500, D) > 1
+    cuda_lib.reset_launches()
+    first = fa.flash_attention(q, k, v, causal=False)
+    second = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["flash_attention"] == 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("q_dtype,c_dtype", [
