@@ -10,8 +10,12 @@ Nothing is built or imported while this module is imported, so the CPU tests
 import it freely.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else; ``reset_launches()`` sets
-every count to 0.
+where it launches its kernel and nowhere else. ``ROW_COUNTS`` counts the
+rows of the sparse backward and the row updates, on every device: the
+distinct rows ``fused_embedding.dedupe_rows`` finds, and the entries the
+row updates (K2/K3 or their plain versions) walk, padding included. Both
+add host ints the callers already hold, so counting costs no device op
+and no sync. ``reset_launches()`` sets every count of both to 0.
 """
 from __future__ import annotations
 
@@ -42,6 +46,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_attention": 0,         # K4
     "decode_attention": 0,        # K5
 }
+ROW_COUNTS: Dict[str, int] = {
+    "rows_deduped": 0,            # fused_embedding.dedupe_rows
+    "row_update_entries": 0,      # fused_update.{adagrad,adam}_row_update
+}
 
 _VP = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -70,9 +78,10 @@ _loaded: List[ctypes.CDLL] = []
 
 
 def reset_launches() -> None:
-    """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set every launch count and row count to 0."""
+    for counts in (LAUNCHES, ROW_COUNTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

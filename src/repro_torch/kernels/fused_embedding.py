@@ -266,7 +266,8 @@ def dedupe_rows(store_idx: torch.Tensor, g_rows: torch.Tensor,
     identical steps would no longer give bit-identical pools.) Entry ``j``
     of the result is the ``j``-th distinct row with its summed gradient; the
     tail is the sentinel row ``num_rows`` with zero values, which every
-    consumer masks out explicitly.
+    consumer masks out explicitly. Adds the distinct rows to
+    ``cuda_lib.ROW_COUNTS["rows_deduped"]``.
 
     Returns ``(rows, vals)``: (N,) rows in the dtype of ``store_idx``, (N, D)
     f32 values.
@@ -274,6 +275,7 @@ def dedupe_rows(store_idx: torch.Tensor, g_rows: torch.Tensor,
     n = store_idx.shape[0]
     sorted_rows, order = torch.sort(store_idx, stable=True)
     uniq, counts = torch.unique_consecutive(sorted_rows, return_counts=True)
+    cuda_lib.ROW_COUNTS["rows_deduped"] += uniq.shape[0]
     summed = torch.segment_reduce(g_rows[order], "sum", lengths=counts,
                                   axis=0)
     rows = store_idx.new_full((n,), num_rows)

@@ -168,7 +168,8 @@ def adagrad_row_update(params: torch.Tensor, acc: torch.Tensor,
       vals:   (N, D) summed row gradients (zero on padding entries).
       lr/eps: adagrad hyperparameters.
 
-    K2 on CUDA tensors, the plain version on CPU tensors.
+    K2 on CUDA tensors, the plain version on CPU tensors. Adds the N
+    entries to ``cuda_lib.ROW_COUNTS["row_update_entries"]``.
     """
     vals = vals.float()
     if params.is_cuda:
@@ -179,6 +180,7 @@ def adagrad_row_update(params: torch.Tensor, acc: torch.Tensor,
     else:
         raise ValueError(f"adagrad_row_update: unsupported device "
                          f"{params.device}")
+    cuda_lib.ROW_COUNTS["row_update_entries"] += rows.shape[0]
     return params, acc
 
 
@@ -250,7 +252,8 @@ def adam_row_update(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
 
     Untouched rows' moments are not decayed and get no weight decay. The
     bias pair is computed once, in f32 on the params' device, and feeds both
-    versions.
+    versions. Adds the N entries to
+    ``cuda_lib.ROW_COUNTS["row_update_entries"]``.
     """
     vals = vals.float()
     bias = adam_bias(count, b1, b2, params.device)
@@ -262,4 +265,5 @@ def adam_row_update(params: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         adam_rows_plain(params, m, v, rows, vals, bias, **kw)
     else:
         raise ValueError(f"adam_row_update: unsupported device {params.device}")
+    cuda_lib.ROW_COUNTS["row_update_entries"] += rows.shape[0]
     return params, m, v

@@ -144,21 +144,35 @@ def make_dlrm_train_step(cfg: DLRMConfig, optimizer: Optimizer,
 
     ``plan.sparse_update`` selects the fused sparse step when the optimizer
     has an ``update_rows`` seam; otherwise the dense step runs.
+
+    Under ``torch.profiler`` each step records ``record_function`` spans
+    at its layer boundaries, in order and without overlap. The dense step
+    has the LM step's two: ``train_step.forward_backward`` (the loss and
+    its gradients) and ``train_step.optimizer`` (compression, the global
+    norm and the update). The fused sparse step has four:
+    ``train_step.embeddings`` (the bags, K1), ``train_step.forward_backward``
+    (the dense network's forward, the loss and the gradients of the dense
+    params and the bag outputs), ``train_step.sparse_grads`` (the bag
+    cotangents to deduped row grads) and ``train_step.optimizer``
+    (compression, the global norm, the clip, the dense update and the row
+    updates, K2/K3). With no profiler active a span records nothing.
     """
     if plan.sparse_update and optimizer.update_rows is not None:
         return _make_dlrm_sparse_step(cfg, optimizer, grad_compress, plan)
 
     def train_step(state, batch):
-        leaves = {k: v.detach().requires_grad_()
-                  for k, v in state["params"].items()}
-        loss = dlrm_mod.dlrm_loss(leaves, batch, cfg, plan)
-        grads = _grads(loss, leaves)
-        if grad_compress:
-            grads = optim_mod.compress_grads(grads)
-        gnorm = optim_mod.global_norm(grads)
-        updates, opt_state = optimizer.update(grads, state["opt"],
-                                              state["params"])
-        params = optim_mod.apply_updates(state["params"], updates)
+        with torch.profiler.record_function("train_step.forward_backward"):
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in state["params"].items()}
+            loss = dlrm_mod.dlrm_loss(leaves, batch, cfg, plan)
+            grads = _grads(loss, leaves)
+        with torch.profiler.record_function("train_step.optimizer"):
+            if grad_compress:
+                grads = optim_mod.compress_grads(grads)
+            gnorm = optim_mod.global_norm(grads)
+            updates, opt_state = optimizer.update(grads, state["opt"],
+                                                  state["params"])
+            params = optim_mod.apply_updates(state["params"], updates)
         new_state = {"params": params, "opt": opt_state,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -205,54 +219,62 @@ def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
 
     def train_step(state, batch):
         params = state["params"]
-        with torch.no_grad():
+        with torch.profiler.record_function("train_step.embeddings"), \
+                torch.no_grad():
             embs = dlrm_mod.dlrm_embeddings(params, batch, cfg, plan)
-        dense_params = {k: v for k, v in params.items()
-                        if k not in sparse_keys}
-        leaves = {k: v.detach().requires_grad_()
-                  for k, v in dense_params.items()}
-        emb_leaves = {k: e.requires_grad_() for k, e in embs.items()}
-        loss = dlrm_mod.dlrm_loss_from_embeddings(leaves, batch, emb_leaves,
-                                                  cfg)
-        g_all = _grads(loss, {**leaves,
-                              **{f"emb:{k}": e for k, e in emb_leaves.items()}})
+        with torch.profiler.record_function("train_step.forward_backward"):
+            dense_params = {k: v for k, v in params.items()
+                            if k not in sparse_keys}
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in dense_params.items()}
+            emb_leaves = {k: e.requires_grad_() for k, e in embs.items()}
+            loss = dlrm_mod.dlrm_loss_from_embeddings(leaves, batch,
+                                                      emb_leaves, cfg)
+            g_all = _grads(loss, {**leaves, **{
+                f"emb:{k}": e for k, e in emb_leaves.items()}})
 
-        grads: Dict[str, Any] = {k: g_all[k] for k in leaves}
-        for k in sparse_keys:
-            pool = dlrm_mod._pool2d(params[k], plan.layout)
-            rows, vals, _ = kernel_ops.sparse_row_grads(
-                pool, batch["sparse"], g_all[f"emb:{emb_of[k]}"],
-                plan=plan_of[k])
-            grads[k] = optim_mod.SparseRowGrad(rows, vals)
+        with torch.profiler.record_function("train_step.sparse_grads"):
+            grads: Dict[str, Any] = {k: g_all[k] for k in leaves}
+            for k in sparse_keys:
+                pool = dlrm_mod._pool2d(params[k], plan.layout)
+                rows, vals, _ = kernel_ops.sparse_row_grads(
+                    pool, batch["sparse"], g_all[f"emb:{emb_of[k]}"],
+                    plan=plan_of[k])
+                grads[k] = optim_mod.SparseRowGrad(rows, vals)
 
-        if grad_compress:
-            grads = optim_mod.compress_grads(grads)
-        gnorm = optim_mod.global_norm(grads)
-        if optimizer.clip_norm is not None:
-            grads, _ = optim_mod.clip_by_global_norm(grads,
-                                                     optimizer.clip_norm)
+        with torch.profiler.record_function("train_step.optimizer"):
+            if grad_compress:
+                grads = optim_mod.compress_grads(grads)
+            gnorm = optim_mod.global_norm(grads)
+            if optimizer.clip_norm is not None:
+                grads, _ = optim_mod.clip_by_global_norm(grads,
+                                                         optimizer.clip_norm)
 
-        dense_state, leaf_state = _split_opt_state(state["opt"], sparse_keys)
-        dense_only = {k: v for k, v in grads.items() if k not in sparse_keys}
-        updates, new_dense_state = optimizer.update(
-            dense_only, dense_state, dense_params)
-        new_params = optim_mod.apply_updates(dense_params, updates)
-        new_opt = dict(new_dense_state)
-        for k in sparse_keys:
-            store = params[k]
-            pool = dlrm_mod._pool2d(store, plan.layout)
-            leaf = {name: (dlrm_mod._pool2d(arr, plan.layout)
-                           if getattr(arr, "shape", None) == store.shape
-                           else arr)
-                    for name, arr in leaf_state[k].items()}
-            # K2/K3 update `pool` and the moment pools in place; the views
-            # share storage with the stores, so `store` holds the result
-            optimizer.update_rows(grads[k].rows, grads[k].vals, leaf, pool)
-            new_params[k] = store
-            for name in leaf:
-                if name in new_opt and isinstance(new_opt[name], dict):
-                    new_opt[name] = dict(new_opt[name])
-                    new_opt[name][k] = leaf_state[k][name]
+            dense_state, leaf_state = _split_opt_state(state["opt"],
+                                                       sparse_keys)
+            dense_only = {k: v for k, v in grads.items()
+                          if k not in sparse_keys}
+            updates, new_dense_state = optimizer.update(
+                dense_only, dense_state, dense_params)
+            new_params = optim_mod.apply_updates(dense_params, updates)
+            new_opt = dict(new_dense_state)
+            for k in sparse_keys:
+                store = params[k]
+                pool = dlrm_mod._pool2d(store, plan.layout)
+                leaf = {name: (dlrm_mod._pool2d(arr, plan.layout)
+                               if getattr(arr, "shape", None) == store.shape
+                               else arr)
+                        for name, arr in leaf_state[k].items()}
+                # K2/K3 update `pool` and the moment pools in place; the
+                # views share storage with the stores, so `store` holds the
+                # result
+                optimizer.update_rows(grads[k].rows, grads[k].vals, leaf,
+                                      pool)
+                new_params[k] = store
+                for name in leaf:
+                    if name in new_opt and isinstance(new_opt[name], dict):
+                        new_opt[name] = dict(new_opt[name])
+                        new_opt[name][k] = leaf_state[k][name]
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
