@@ -11,8 +11,9 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    print the card's name and power limit (``nvidia-smi``) and the
    ``-Xptxas -v`` lines (registers, shared memory, spills) of the
    redesigned kernels; K1-K3's main-path kernels, K4's tensor-core and
-   SIMT kernels and K5's chunked instances (head dim 256, or more than 8
-   q-heads per kv-head) must not spill.
+   SIMT kernels, K5's chunked instances (head dim 256, or more than 8
+   q-heads per kv-head) and the segment sum's (SS) D=16 and D=1 instances
+   must not spill.
 2. K1 against its plain version on the card at the full Wide&Deep shapes
    (B=512, T=26, H=4, R=3,294,238, D=16 and the wide D=1), over
    sum/mean/max x weighted/unweighted x cache off/64/26*512 rows x flat/
@@ -34,10 +35,18 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    ``torch.nn.functional.embedding_bag`` (a yardstick the port never calls).
    K1-K3 on both pools of the step: the deep D=16 pool, which must take
    the vector route, and the wide D=1 pool, K1's wide route and K2/K3's
-   scalar route; the grids of ``bag_plan`` and ``update_plan``.
+   scalar route; the grids of ``bag_plan`` and ``update_plan``. SS, the
+   dedupe's segment sum (``csrc/segment_sum.cu``), on the bags route of
+   the step, at D=16 and D=1 on the rows of this batch and of a batch of
+   the Wide&Deep benchmark cell (B=65,536 on Criteo Kaggle's tables, made
+   by ``portbench``'s traffic generator): equal bit for bit to its plain
+   version (``g_bags[order // H]``, then ``torch.segment_reduce``) and to
+   the library path it replaced (the sorted gather of the expanded
+   cotangent, then ``segment_reduce``), both timed beside it; its bound is
+   the longest segment's chain of adds or its bytes.
 6. a ``torch.profiler`` breakdown of the fused adagrad step: device time,
    idle share, the kernels that take the most device time, and K1 and K2
-   (both pools each) found by name, with their device time per call;
+   (both pools each) and SS found by name, with their device time per call;
    fails if the trace has no device events or misses one of them.
 
 The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
@@ -237,7 +246,7 @@ last:
 
 Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle``,
 ``sim``, ``lm_zoo``, ``lm_train`` and ``single_table`` JSON lines, the
-``kernels`` JSON line (K1-K5; K1-K3 with their phase-13 launches under
+``kernels`` JSON line (K1-K5 and SS; K1-K3 with their phase-13 launches under
 ``launches_selfheal``, K1 with phase 14's under ``launches_lifecycle`` and
 phase 17's under ``launches_single_table`` with their timings under
 ``at_single_table``, K3 with its in-step time under
@@ -390,6 +399,9 @@ PTXAS_REPORTED = {
     **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
        for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
        for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"))},
+    **{f"segment_sum_{kind}_kernelI{args}E": f"SS {kind} {name}"
+       for kind in ("short", "long")
+       for args, name in (("Li16ELb1", "D=16 float4"), ("Li1ELb0", "D=1"))},
 }
 
 
@@ -425,7 +437,7 @@ def phase_build(report):
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
         if name.startswith(("K1", "K2", "K3", "K4", "K5 split D<=256",
-                            "K5 split D<=128, G>8")):
+                            "K5 split D<=128, G>8", "SS")):
             spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
                                 r"spill loads", line)
             check(spills and all(a == b == "0" for a, b in spills),
@@ -616,14 +628,16 @@ def phase_slice(report, dev):
 
     log("phase 4 slice: 20 steps, fused update, adagrad")
     run, c_main = _driven(SLICE_FLAGS + ["--fused-update", "--steps", "20"],
-                          ("fused_embedding_bag", "adagrad_row_update"))
+                          ("fused_embedding_bag", "adagrad_row_update",
+                           "segment_sum_bags"))
     log("phase 4 slice: 5 steps, fused update, adam")
     _, c_adam = _driven(SLICE_FLAGS + ["--fused-update", "--optimizer",
                                        "adam", "--steps", "5"],
-                        ("fused_embedding_bag", "adam_row_update"))
+                        ("fused_embedding_bag", "adam_row_update",
+                         "segment_sum_bags"))
     log("phase 4 slice: 5 steps, dense path")
     _, c_dense = _driven(SLICE_FLAGS + ["--steps", "5"],
-                         ("fused_embedding_bag",))
+                         ("fused_embedding_bag", "segment_sum_bags"))
 
     # 3 further steps on the card and on the CPU from the carried state
     cfg, opt, plan = run.cfg, run.opt, run.plan
@@ -688,6 +702,7 @@ def phase_slice(report, dev):
 
 def phase_timing(report, dev, run, c_main, c_adam, errs):
     import torch
+    from repro_torch.kernels import fused_embedding as fe
     from repro_torch.models.dlrm import _pool2d
 
     cfg, plan = run.cfg, run.plan
@@ -739,14 +754,42 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
             "wide_plain_ms": wide["plain_ms"],
             "wide_bound_ms": wide["bound_ms"],
             "wide_bound_by": wide["bound_by"], "wide_blocks": wide["blocks"]})
+
+    # SS, the dedupe's segment sum, on the bags route of the step: both
+    # stores of this batch, then of a batch of the Wide&Deep benchmark cell
+    # (B=65,536 on Criteo Kaggle's tables), whose longest segment sets it
+    store_idx = fe._flat_lookups(idx, plan.offsets)
+    if plan.layout is not None:
+        store_idx = fe.translate_rows(store_idx, plan.layout)
+    H = idx.shape[2]
+    ss = {"deep": _time_ss(store_idx, H, D, flush),
+          "wide": _time_ss(store_idx, H, 1, flush)}
+    cell_idx, cell_at = _cell_lookups(dev)
+    ss["cell"] = {"at": cell_at,
+                  "deep": _time_ss(cell_idx, cell_at["H"], D, flush),
+                  "wide": _time_ss(cell_idx, cell_at["H"], 1, flush)}
+    del cell_idx
+    ssd = ss["deep"]
+    kernels.append({
+        "name": "SS segment_sum", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": None, "launches": c_main["segment_sum_bags"],
+        "max_abs_err": 0.0, "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": ssd["library_ms"],
+        "at": f"D={D}, bags route, longest segment {ssd['longest']}",
+        **{f"wide_{k}": ss["wide"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "at_wide_deep_cell": ss["cell"]})
     report["kernels"] = kernels
     report["timing"] = {
         "l2_flushed": True, "iters": TIMING_ITERS,
-        "k1": k1, "k2_k3": k23,
+        "k1": k1, "k2_k3": k23, "segment_sum": ss,
         "launches_per_step": {
             "fused_embedding_bag": c_main["fused_embedding_bag"] / 20,
             "adagrad_row_update": c_main["adagrad_row_update"] / 20,
-            "adam_row_update": c_adam["adam_row_update"] / 5}}
+            "adam_row_update": c_adam["adam_row_update"] / 5,
+            "segment_sum_bags": c_main["segment_sum_bags"] / 20}}
     log(f"phase 5 timing: K1 {k1d['ms']:.4f} ms (wide "
         f"{k1['wide']['ms']:.4f} ms), "
         f"K2 {k23[D]['adagrad_row_update']['ms']:.4f} ms (wide "
@@ -754,6 +797,12 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
         f"{k23[D]['adam_row_update']['ms']:.4f} ms (wide "
         f"{k23[1]['adam_row_update']['ms']:.4f} ms); "
         f"{k23[D]['live_rows']} live rows, {k1d['cold_rows']} cold K1 rows")
+    for tag, row in (("", ss), (" at the W&D cell's batch", ss["cell"])):
+        log(f"  SS{tag}: {row['deep']['ms']:.4f} ms (wide "
+            f"{row['wide']['ms']:.4f} ms), plain {row['deep']['plain_ms']:.4f}"
+            f" ms, library {row['deep']['library_ms']:.4f} ms, bound "
+            f"{row['deep']['bound_ms']:.4f} ms ({row['deep']['bound_by']}; "
+            f"longest segment {row['deep']['longest']})")
     return kernels
 
 
@@ -843,6 +892,94 @@ def _time_k2_k3(dev, cfg, D, flush):
     return out
 
 
+def _cell_lookups(dev, cell="wide_deep", traffic="zipf105.b65536",
+                  seed=3200000001):
+    """(N,) int32 store rows of one batch of a ``portbench`` cell, made on
+    the card by the benchmark's traffic generator from its configuration
+    and traffic files, translated by the cell's padded layout."""
+    import torch
+    from portbench.yardstick import traffic as gen
+    from repro_torch.kernels import fused_embedding as fe
+    from repro_torch.sharding import policy as pol
+    config = json.loads((ROOT / "portbench" / "configs"
+                         / f"{cell}.json").read_text())
+    tr = json.loads((ROOT / "portbench" / "traffic"
+                     / f"{traffic}.json").read_text())
+    rows, H = config["table_rows"], tr["lookups_per_table"]
+    batch = gen.criteo_batch(rows, config["n_dense"], tr["batch"], H,
+                             float(tr["zipf_alpha"]),
+                             gen.generator(seed, gen.DATA_STREAM, dev))
+    layout = pol.padded_layout_for_ranges(
+        pol.uniform_vocab_ranges(sum(rows), tr["n_ps"]))
+    flat = gen.flat_rows(batch["sparse"], rows).to(torch.int32)
+    return fe.translate_rows(flat, layout), {
+        "cell": f"{cell}.{traffic}", "B": tr["batch"], "T": len(rows),
+        "H": H}
+
+
+def _time_ss(store_idx, H, D, flush):
+    """The segment sum on the bags route for (N,) store rows ``store_idx``
+    and random (N / H, D) bag cotangents: held bit for bit against its
+    plain version (``g_bags[order // H]``, then ``torch.segment_reduce``)
+    and timed beside it and beside the library path it replaced (the
+    (N, D) copy of the expanded cotangent, the sorted gather, then
+    ``segment_reduce``). Bound: the longest segment's chain of dependent
+    adds at 4 cycles an add and the card's largest SM clock, or bytes
+    (``order``, the segment ends and the bag cotangents read once, the
+    ``n_uniq`` summed rows written) at 3.35 TB/s."""
+    import torch
+    from repro_torch.kernels import fused_embedding as fe
+    dev = store_idx.device
+    N = store_idx.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(D)
+    g_bags = torch.randn((N // H, D), generator=gen, device=dev)
+    _, order = torch.sort(store_idx, stable=True)
+    _, counts = torch.unique_consecutive(store_idx[order],
+                                         return_counts=True)
+    n_uniq = counts.shape[0]
+    vals = torch.zeros((N, D), device=dev)
+
+    def ours():
+        fe.segment_sum_cuda(order, counts, g_bags, H, vals, "bags")
+
+    def plain():
+        return torch.segment_reduce(g_bags[order // H], "sum",
+                                    lengths=counts, axis=0)
+
+    def library():
+        g_rows = g_bags[:, None, :].expand(N // H, H, D).reshape(N, D)
+        return torch.segment_reduce(g_rows[order], "sum", lengths=counts,
+                                    axis=0)
+
+    ours()
+    check(torch.equal(vals[:n_uniq], plain())
+          and torch.equal(vals[:n_uniq], library())
+          and not vals[n_uniq:].any(),
+          f"SS at D={D}, N={N}: the kernel's sums differ from "
+          "segment_reduce's")
+    k_ms = time_ms(ours, flush)
+    p_ms = time_ms(plain, flush)
+    l_ms = time_ms(library, flush)
+    longest = int(counts.max())
+    chain_ms = longest * 4 / (_max_sm_mhz() * 1e3)
+    n_bytes = 8 * N + 8 * n_uniq + 4 * D * (N // H + n_uniq)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": max(chain_ms, bytes_ms),
+            "bound_by": "add chain" if chain_ms >= bytes_ms else "bytes",
+            "chain_ms": chain_ms, "bytes_ms": bytes_ms, "bytes": n_bytes,
+            "N": N, "n_uniq": n_uniq, "longest": longest}
+
+
+def _max_sm_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def _device_summary(prof, wall_us, n_steps, top):
     """Per-step device time, idle share and the ``top`` kernels by device
     time from a ``torch.profiler`` run of ``n_steps`` steps that took
@@ -877,6 +1014,7 @@ PROFILED_KERNELS = {
     "K1 D=1": ("bag_wide_kernel",),
     "K2 D=16": ("rows_vec16_kernel", "AdagradOp"),
     "K2 D=1": ("rows_wide_kernel", "AdagradOp"),
+    "SS": ("segment_sum_",),
 }
 
 

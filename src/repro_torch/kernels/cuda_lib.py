@@ -10,7 +10,8 @@ Nothing is built or imported while this module is imported, so the CPU tests
 import it freely.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else. ``ROW_COUNTS`` counts the
+where it launches its kernel and nowhere else; the segment sum's wrapper
+adds one a call (two launches) under the route it took. ``ROW_COUNTS`` counts the
 rows of the sparse backward and the row updates, on every device: the
 distinct rows ``fused_embedding.dedupe_rows`` finds, and the entries the
 row updates (K2/K3 or their plain versions) walk, padding included. Both
@@ -45,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "adam_row_update": 0,         # K3
     "flash_attention": 0,         # K4
     "decode_attention": 0,        # K5
+    "segment_sum_bags": 0,        # the dedupe's segment sum, bags route
+    "segment_sum_rows": 0,        # the dedupe's segment sum, rows route
 }
 ROW_COUNTS: Dict[str, int] = {
     "rows_deduped": 0,            # fused_embedding.dedupe_rows
@@ -72,6 +75,8 @@ _SIGNATURES = {
     "repro_decode_attention":
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
          _I, _I, _F, _F, _I, _I, _VP],
+    "repro_segment_sum_f32":
+        [_VP, _VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _I, _VP],
 }
 
 _loaded: List[ctypes.CDLL] = []

@@ -18,13 +18,16 @@ Forward: ``embedding_bag_forward`` launches K1 (``csrc/fused_embedding.cu``)
 on CUDA tensors, on the route ``bag_route`` picks from the shape and the
 arrays' alignment and the grid ``bag_plan`` sizes, and runs its plain
 version, ``embedding_bag_plain``, on CPU tensors. Backward
-(``torch.autograd.Function``): per-lookup row cotangents, a deterministic
-dedupe (stable sort + sequential segment sum) and one scatter into the
-unique rows, shared with ``sparse_row_grads``.
+(``torch.autograd.Function``): a deterministic dedupe (stable sort, then
+each segment summed in order: the segment sum of ``csrc/segment_sum.cu``
+on CUDA tensors, ``torch.segment_reduce`` on CPU tensors) of the bag
+cotangents (unweighted ``sum``/``mean``) or the per-lookup row cotangents
+(``max``, weighted), and one scatter into the unique rows, shared with
+``sparse_row_grads``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,35 @@ from repro_torch.kernels import cuda_lib
 
 COMBINERS = ("sum", "mean", "max")
 _COMBINER_CODE = {"sum": 0, "mean": 1, "max": 2}
+
+
+# small tensors that depend only on the plan, one per (key, device): a host
+# list copied to a CUDA device is a blocking copy that drains the stream, and
+# the step would make 16 of them (offsets, shard starts, hot-row maps)
+_STATIC: Dict[tuple, torch.Tensor] = {}
+_STATIC_MAX = 1024
+
+
+def static_tensor(key: tuple, device, make: Callable[[], object],
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.as_tensor(make(), dtype=dtype, device=device)``, made once
+    for each ``(key, dtype, device)`` and kept: ``key`` must determine what
+    ``make`` returns. Callers never write into the result."""
+    k = (key, dtype, torch.device(device))
+    t = _STATIC.get(k)
+    if t is None:
+        if len(_STATIC) >= _STATIC_MAX:
+            _STATIC.clear()
+        with torch.inference_mode(False):
+            t = torch.as_tensor(make(), dtype=dtype, device=device)
+        _STATIC[k] = t
+    return t
+
+
+def static_ints(values: Tuple[int, ...], dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """The tuple ``values`` as a ``dtype`` tensor on ``device``, kept."""
+    return static_tensor(values, device, lambda: values, dtype)
 
 
 def table_offsets(table_rows: Sequence[int]) -> Tuple[int, ...]:
@@ -66,8 +98,7 @@ def translate_rows(rows: torch.Tensor, layout) -> torch.Tensor:
     rebased to ``shard * max_range + slot``. Same shape and dtype as
     ``rows``.
     """
-    starts = torch.as_tensor(layout.shard_starts, dtype=rows.dtype,
-                             device=rows.device)
+    starts = static_ints(layout.shard_starts, rows.dtype, rows.device)
     shard = (torch.searchsorted(starts, rows.contiguous(), right=True) - 1
              ).clamp_(0, layout.n_ps - 1)
     return (shard * layout.max_range + rows - starts[shard]).to(rows.dtype)
@@ -89,8 +120,7 @@ def encode_hot_indices(idx: torch.Tensor, offsets: Sequence[int],
     Returns ``(encoded, hit)``.
     """
     def col(vals):
-        return torch.as_tensor(vals, dtype=idx.dtype,
-                               device=idx.device)[None, :, None]
+        return static_ints(tuple(vals), idx.dtype, idx.device)[None, :, None]
 
     local = idx - col(offsets)
     hit = local < col(table_hot)
@@ -254,35 +284,121 @@ def embedding_bag_forward(pool, enc, weights, cache, combiner):
 # ---------------------------------------------------------------------------
 # sparse-gradient aggregation shared by both backward paths
 # ---------------------------------------------------------------------------
+# the widest row the segment sum takes (one stage of its ring holds a row)
+SEGMENT_MAX_D = 16384
+
+
+def segment_sum_cuda(order: torch.Tensor, counts: torch.Tensor,
+                     src: torch.Tensor, H: int, vals: torch.Tensor,
+                     route: str) -> None:
+    """Launch the segment sum (``csrc/segment_sum.cu``) on CUDA tensors.
+
+    Row ``j < n_uniq`` of ``vals`` becomes ``0 + src[order[k] // H] + ...``
+    over segment ``j``'s sorted entries ``k`` in order: the bits of
+    ``torch.segment_reduce(src[order // H], "sum", lengths=counts)``.
+    ``order`` is the (N,) int64 stable-sort permutation, ``counts`` the
+    (n_uniq,) int64 segment lengths, ``src`` a contiguous (rows, D) f32
+    tensor, ``vals`` the zeroed contiguous (N, D) f32 output. Replaces no
+    TPU kernel (the reference sums in XLA); bound by the longest segment's
+    add chain (~146 k adds a column on Wide&Deep, ~0.3 ms), then bytes.
+    A thread per (segment, 4 columns) sums short segments; blocks of a
+    fixed grid stream the long ones through shared memory. Two launches
+    and no host sync; adds one to ``LAUNCHES[f"segment_sum_{route}"]``.
+    Raises on anything else, or if a launch fails.
+    """
+    n_uniq, D = counts.shape[0], src.shape[1]
+    dev = src.device
+    if not src.is_cuda or src.dtype != torch.float32 or src.dim() != 2 \
+            or not src.is_contiguous() or D > SEGMENT_MAX_D:
+        raise ValueError("segment_sum: src must be a contiguous (rows, D) "
+                         f"float32 CUDA tensor with D <= {SEGMENT_MAX_D}, "
+                         f"got {src.dtype} {tuple(src.shape)} on {dev}")
+    if order.device != dev or order.dtype != torch.int64 \
+            or order.dim() != 1 or not order.is_contiguous() \
+            or order.shape[0] >= 2 ** 31:
+        raise ValueError("segment_sum: order must be a contiguous (N,) int64 "
+                         "tensor on src's device, N < 2**31")
+    if src.shape[0] * H != order.shape[0]:
+        raise ValueError(f"segment_sum: {order.shape[0]} lookups are not "
+                         f"{H} for each of src's {src.shape[0]} rows")
+    if counts.device != dev or counts.dtype != torch.int64:
+        raise ValueError("segment_sum: counts must be int64 on src's device")
+    if vals.device != dev or vals.dtype != torch.float32 \
+            or tuple(vals.shape) != (order.shape[0], D) \
+            or not vals.is_contiguous():
+        raise ValueError("segment_sum: vals must be a contiguous (N, D) "
+                         "float32 tensor on src's device")
+    if n_uniq == 0 or D == 0:
+        return
+    ends = counts.cumsum(0)
+    work = torch.zeros(3, dtype=torch.int32, device=dev)
+    long_ids = torch.empty(n_uniq, dtype=torch.int32, device=dev)
+    vec = D % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in (src, vals))
+    lib = cuda_lib.load()
+    status = lib.repro_segment_sum_f32(
+        order.data_ptr(), ends.data_ptr(), src.data_ptr(), n_uniq, D, H,
+        vals.data_ptr(), work.data_ptr(), long_ids.data_ptr(), int(vec),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(status, "segment_sum")
+    cuda_lib.LAUNCHES[f"segment_sum_{route}"] += 1
+
+
+def _dedupe(store_idx: torch.Tensor, src: torch.Tensor, H: int,
+            num_rows: int, route: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dedupe of ``dedupe_rows`` (H = 1) and ``dedupe_bags`` (H > 1):
+    lookup ``i`` carries ``src[i // H]``."""
+    n = store_idx.shape[0]
+    src = src.contiguous()
+    sorted_rows, order = torch.sort(store_idx, stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_rows, return_counts=True)
+    n_uniq = uniq.shape[0]
+    cuda_lib.ROW_COUNTS["rows_deduped"] += n_uniq
+    rows = store_idx.new_full((n,), num_rows)
+    rows[:n_uniq] = uniq
+    vals = src.new_zeros((n, src.shape[1]))
+    if src.is_cuda:
+        segment_sum_cuda(order, counts, src, H, vals, route)
+    else:
+        picked = order if H == 1 else order // H
+        vals[:n_uniq] = torch.segment_reduce(src[picked], "sum",
+                                             lengths=counts, axis=0)
+    return rows, vals
+
+
 def dedupe_rows(store_idx: torch.Tensor, g_rows: torch.Tensor,
                 num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deduplicate row cotangents: (N,) rows + (N, D) grads → COO row grads.
 
     Duplicate store rows are summed into one entry in a deterministic order:
-    a stable sort keeps equal rows in their original order, and
-    ``torch.segment_reduce`` sums each segment sequentially, on the CPU and
-    on CUDA alike. (An ``index_add_`` over duplicate rows would accumulate
-    with atomics in an order that changes from run to run on CUDA, and two
-    identical steps would no longer give bit-identical pools.) Entry ``j``
-    of the result is the ``j``-th distinct row with its summed gradient; the
-    tail is the sentinel row ``num_rows`` with zero values, which every
-    consumer masks out explicitly. Adds the distinct rows to
+    a stable sort keeps equal rows in their original order, and each
+    segment is summed in that order from zero, one add after another: by
+    the segment sum (``segment_sum_cuda``) on CUDA tensors and by
+    ``torch.segment_reduce`` on the CPU, bit for bit alike. (An
+    ``index_add_`` over duplicate rows would accumulate with atomics in an
+    order that changes from run to run on CUDA, and two identical steps
+    would no longer give bit-identical pools.) Entry ``j`` of the result is
+    the ``j``-th distinct row with its summed gradient; the tail is the
+    sentinel row ``num_rows`` with zero values, which every consumer masks
+    out explicitly. Adds the distinct rows to
     ``cuda_lib.ROW_COUNTS["rows_deduped"]``.
 
     Returns ``(rows, vals)``: (N,) rows in the dtype of ``store_idx``, (N, D)
     f32 values.
     """
-    n = store_idx.shape[0]
-    sorted_rows, order = torch.sort(store_idx, stable=True)
-    uniq, counts = torch.unique_consecutive(sorted_rows, return_counts=True)
-    cuda_lib.ROW_COUNTS["rows_deduped"] += uniq.shape[0]
-    summed = torch.segment_reduce(g_rows[order], "sum", lengths=counts,
-                                  axis=0)
-    rows = store_idx.new_full((n,), num_rows)
-    rows[:uniq.shape[0]] = uniq
-    vals = g_rows.new_zeros((n, g_rows.shape[1]))
-    vals[:uniq.shape[0]] = summed
-    return rows, vals
+    return _dedupe(store_idx, g_rows, 1, num_rows, "rows")
+
+
+def dedupe_bags(store_idx: torch.Tensor, g_bags: torch.Tensor, H: int,
+                num_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``dedupe_rows`` for lookups that share their bag's cotangent.
+
+    Lookup ``i`` of the (N,) ``store_idx`` (N = B*T*H, bag-major) carries
+    row ``i // H`` of the (B*T, D) ``g_bags``, as every lookup of an
+    unweighted ``sum`` or ``mean`` bag does; the result equals
+    ``dedupe_rows(store_idx, g_bags.repeat_interleave(H, 0), num_rows)``
+    bit for bit, without that (N, D) copy.
+    """
+    return _dedupe(store_idx, g_bags, H, num_rows, "bags")
 
 
 def scatter_rows(rows: torch.Tensor, vals: torch.Tensor,
@@ -301,7 +417,8 @@ def scatter_rows(rows: torch.Tensor, vals: torch.Tensor,
 
 def _row_cotangents(pool, store_idx, w, g, *, combiner: str, B: int, T: int,
                     H: int):
-    """Per-lookup row cotangents of one pooled bag output cotangent ``g``.
+    """Per-lookup row cotangents of one pooled bag output cotangent ``g``,
+    for a ``max`` or a weighted bag.
 
     Returns ``(g_rows, dw)``: (B, T, H, D) f32 cotangent per looked-up row
     and the (B, T, H) weight cotangent (None when unweighted).
@@ -319,22 +436,39 @@ def _row_cotangents(pool, store_idx, w, g, *, combiner: str, B: int, T: int,
         dw = None if w is None else (g_v * rows).sum(dim=-1)
         g_rows = g_v if w is None else g_v * w[..., None]
         return g_rows, dw
-    g_v = g[:, :, None, :].expand(B, T, H, D)
-    if combiner == "mean":
-        g_v = g_v / H
-    if w is None:
-        return g_v, None
+    g_v = _bag_cotangents(g, combiner, H)[:, :, None, :].expand(B, T, H, D)
     rows = pool.index_select(0, store_idx).reshape(B, T, H, D).float()
     dw = (g_v * rows).sum(dim=-1)
     return g_v * w[..., None], dw
+
+
+def _bag_cotangents(g, combiner: str, H: int):
+    """The cotangent every lookup of a ``sum`` or ``mean`` bag shares:
+    (B, T, D) ``g``, divided by ``H`` for ``mean``."""
+    return g / H if combiner == "mean" else g
+
+
+def _sparse_grads(pool, store_idx, w, g, *, combiner: str, B: int, T: int,
+                  H: int):
+    """Deduped COO row gradients of one pooled bag output cotangent ``g``:
+    ``(rows, vals, dw)``, shared by both backward paths. Unweighted ``sum``
+    and ``mean`` bags dedupe their (B*T, D) bag cotangents (``dedupe_bags``);
+    ``max`` and weighted bags their per-lookup ones (``dedupe_rows``)."""
+    R, D = pool.shape
+    if w is None and combiner != "max":
+        g_bags = _bag_cotangents(g, combiner, H).reshape(B * T, D)
+        return (*dedupe_bags(store_idx, g_bags, H, R), None)
+    g_rows, dw = _row_cotangents(pool, store_idx, w, g, combiner=combiner,
+                                 B=B, T=T, H=H)
+    return (*dedupe_rows(store_idx, g_rows.reshape(B * T * H, D), R), dw)
 
 
 def _flat_lookups(indices: torch.Tensor, offsets) -> torch.Tensor:
     """(B, T, H) local ids + static offsets → (B*T*H,) int32 flat rows."""
     idx = indices.to(torch.int32)
     if offsets is not None:
-        idx = idx + torch.as_tensor(offsets, dtype=torch.int32,
-                                    device=idx.device)[None, :, None]
+        idx = idx + static_ints(tuple(offsets), torch.int32,
+                                idx.device)[None, :, None]
     return idx.reshape(-1)
 
 
@@ -359,14 +493,12 @@ def sparse_row_grads(pool: torch.Tensor, indices: torch.Tensor,
     cotangent (None when unweighted).
     """
     B, T, H = indices.shape
-    R = pool.shape[0]
     flat_idx = _flat_lookups(indices, plan.offsets)
     store_idx = flat_idx if plan.layout is None else \
         translate_rows(flat_idx, plan.layout)
     w = None if weights is None else weights.float().reshape(B, T, H)
-    g_rows, dw = _row_cotangents(pool, store_idx, w, g.float(),
-                                 combiner=plan.combiner, B=B, T=T, H=H)
-    rows, vals = dedupe_rows(store_idx, g_rows.reshape(B * T * H, -1), R)
+    rows, vals, dw = _sparse_grads(pool, store_idx, w, g.float(),
+                                   combiner=plan.combiner, B=B, T=T, H=H)
     dweights = None if dw is None else dw.reshape(weights.shape).to(
         weights.dtype)
     return rows, vals, dweights
@@ -398,10 +530,15 @@ def _encode(pool: torch.Tensor, flat_idx: torch.Tensor, meta: _Meta):
         enc = idx if layout is None else translate_rows(idx, layout)
         return enc.contiguous(), None
     offsets, table_hot = meta.hot
-    ids = hot_row_ids(offsets, table_hot)
-    if layout is not None:      # a table's prefix may straddle two shards
-        ids = layout.flat_to_padded(ids)
-    cache = pool.index_select(0, torch.as_tensor(ids, device=pool.device))
+
+    def cache_rows():
+        ids = hot_row_ids(offsets, table_hot)
+        # a table's prefix may straddle two shards
+        return ids if layout is None else layout.flat_to_padded(ids)
+
+    ids = static_tensor(("hot_rows", offsets, table_hot, layout),
+                        pool.device, cache_rows)
+    cache = pool.index_select(0, ids)
     enc, _ = encode_hot_indices(idx, offsets, table_hot)
     if layout is not None:
         enc = torch.where(enc < 0, enc,
@@ -423,17 +560,16 @@ class _FusedEmbeddingBag(torch.autograd.Function):
         meta = ctx.meta
         pool, flat_idx, weights = ctx.saved_tensors
         B, T, H = meta.B, meta.T, meta.H
-        R, D = pool.shape
+        R = pool.shape[0]
         # gradients land in the store's row space: padded rows under a
         # layout, whose padding slots are never addressed (exactly zero)
         store_idx = flat_idx if meta.layout is None else \
             translate_rows(flat_idx, meta.layout)
         w = None if weights is None else weights.reshape(B, T, H)
-        g_rows, dw = _row_cotangents(pool, store_idx, w, g.float(),
-                                     combiner=meta.combiner, B=B, T=T, H=H)
         # the dedupe shared with sparse_row_grads makes the dense gradient
         # the bit-exact oracle of the fused row-wise update
-        rows, vals = dedupe_rows(store_idx, g_rows.reshape(B * T * H, D), R)
+        rows, vals, dw = _sparse_grads(pool, store_idx, w, g.float(),
+                                       combiner=meta.combiner, B=B, T=T, H=H)
         dpool = scatter_rows(rows, vals, R).to(pool.dtype)
         dweights = None if dw is None else dw.reshape(weights.shape).to(
             weights.dtype)

@@ -44,6 +44,15 @@ train step (llama, whisper; f32, remat, adamw) on the card matches the
 CPU's for three steps and launches no kernel (attention trains on the
 chunked route); its eval step launches K4 once per attention call.
 
+The dedupe's segment sum (``csrc/segment_sum.cu``) gives the rows and
+values of the sorted gather and ``torch.segment_reduce`` bit for bit, on
+both routes (bag cotangents read through ``order // H``, per-lookup ones
+through ``order``): at full-width Wide&Deep's shapes (D=16 and D=1, a
+~146 k-entry segment), at segment lengths around each of its thresholds,
+at odd and wide widths and off 16 bytes. The sparse backward on the card
+takes the bags route for unweighted sum and mean and keeps the dense
+gradient's bits; the fused step launches it once per store.
+
 The lifecycle example (``examples/elastic_dlrm_train_torch.py``) at a small
 config runs 151 steps on the card: K1 launches twice per executed step
 plus twice for the eval, and the exactly-once coverage, the step count and
@@ -52,6 +61,7 @@ every brain decision equal the CPU run's (which
 """
 import dataclasses
 import importlib.util
+import json
 import sys
 from pathlib import Path
 
@@ -61,6 +71,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import assert_ulp_close  # noqa: E402  (sets torch threads)
+from portbench.yardstick import traffic  # noqa: E402
 from repro_torch.configs import dlrm_models as tcfg  # noqa: E402
 from repro_torch.configs.registry import get_dlrm  # noqa: E402
 from repro_torch.data.synthetic import criteo_batch  # noqa: E402
@@ -333,12 +344,49 @@ def test_reduced_step_on_card_matches_cpu_and_is_deterministic(dev, opt_name):
     kernel = "adagrad_row_update" if opt_name == "adagrad" else \
         "adam_row_update"
     assert cuda_lib.LAUNCHES[kernel] == 2 * len(batches)
+    # unweighted bags: each store's dedupe sums the bag cotangents
+    assert cuda_lib.LAUNCHES["segment_sum_bags"] == 2 * len(batches)
+    assert cuda_lib.LAUNCHES["segment_sum_rows"] == 0
     cpu, _ = run("cpu")
     np.testing.assert_allclose(gpu, cpu, rtol=0, atol=2e-5)
     gpu2, s2 = run(dev)
     assert gpu2 == gpu
     for k in ("tables", "wide"):
         assert torch.equal(s1["params"][k], s2["params"][k])
+
+
+def test_fused_step_syncs_only_in_the_dedupe(dev):
+    """The fused sparse step blocks the host once per store, at the
+    dedupe's ``unique_consecutive``: its offsets, shard starts and hot-row
+    maps are made on the card once per plan, not copied from host lists in
+    every step (each such copy drains the stream)."""
+    cfg = dataclasses.replace(tcfg.reduced_dlrm(get_dlrm("wide_deep")),
+                              zipf_alpha=1.05, hot_rows_k=64)
+    layout = tpol.padded_layout_for_ranges(
+        tpol.uniform_vocab_ranges(cfg.total_embedding_rows, 4))
+    opt = optim.make("adagrad", 3e-3)
+    plan = cfg.embedding_plan(layout=layout, sparse_update=True)
+    step = trainer.make_dlrm_train_step(cfg, opt, plan=plan)
+    state = trainer.make_dlrm_train_state(
+        cfg, opt, torch.Generator().manual_seed(0), layout=layout)
+    state["params"] = {k: v.to(dev) for k, v in state["params"].items()}
+    state["opt"] = opt.init(state["params"])
+    batches = [launch.to_device(criteo_batch(cfg, 11, ids), dev)
+               for ids in launch.sample_order(3, cfg.batch_size)]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for b in batches[1:]:
+                state, _ = step(state, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 2 * len(batches[1:]), [str(w.message)
+                                                for w in syncs]
 
 
 def _replanned(dev, opt_name="adagrad"):
@@ -963,3 +1011,162 @@ def test_serve_batched_example_on_card_matches_cpu(dev, arch):
         assert sum(counts.values()) == counts["decode_attention"]
     else:
         assert sum(counts.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the dedupe's segment sum
+# ---------------------------------------------------------------------------
+# Criteo Kaggle's 26 vocabularies: the Wide&Deep benchmark cell's tables
+KAGGLE_ROWS = tuple(json.loads(
+    (Path(__file__).resolve().parent.parent / "portbench" / "configs"
+     / "wide_deep.json").read_text())["table_rows"])
+
+
+def _zipf_lookups(dev, B, rows, H, alpha=1.05, seed=0):
+    """(B, T, H) int32 flat ids of bounded-zipf lookups, made on the card
+    by the benchmark's traffic generator (``zipf_indices``' formula)."""
+    u = torch.rand((B, len(rows), H), dtype=torch.float64, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    local = traffic.zipf_from_uniform(
+        u, torch.tensor(rows, device=dev)[None, :, None], alpha)
+    offs = torch.tensor(fe.table_offsets(rows), device=dev)[None, :, None]
+    return (local + offs).to(torch.int32)
+
+
+def _parent_dedupe(store_idx, g_rows, num_rows):
+    """The dedupe before the segment sum: the sorted gather, then
+    ``torch.segment_reduce``."""
+    n = store_idx.shape[0]
+    sorted_rows, order = torch.sort(store_idx, stable=True)
+    uniq, counts = torch.unique_consecutive(sorted_rows, return_counts=True)
+    summed = torch.segment_reduce(g_rows[order], "sum", lengths=counts,
+                                  axis=0)
+    rows = store_idx.new_full((n,), num_rows)
+    rows[:uniq.shape[0]] = uniq
+    vals = g_rows.new_zeros((n, g_rows.shape[1]))
+    vals[:uniq.shape[0]] = summed
+    return rows, vals, counts
+
+
+def _segment_sum_on_card(store_idx, src, H, num_rows, route):
+    """One dedupe through the segment sum, held bit for bit to the parent's
+    on the same card; the counts of the segments, for the caller."""
+    per_lookup = src if H == 1 else src.repeat_interleave(H, 0)
+    want_rows, want_vals, counts = _parent_dedupe(store_idx, per_lookup,
+                                                  num_rows)
+    cuda_lib.reset_launches()
+    if route == "bags":
+        rows, vals = fe.dedupe_bags(store_idx, src, H, num_rows)
+    else:
+        rows, vals = fe.dedupe_rows(store_idx, src, num_rows)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[f"segment_sum_{route}"] == 1
+    assert sum(cuda_lib.LAUNCHES.values()) == 1
+    assert torch.equal(rows, want_rows)
+    assert torch.equal(vals, want_vals)
+    n_uniq = counts.shape[0]
+    assert (rows[n_uniq:] == num_rows).all() and not vals[n_uniq:].any()
+    return counts
+
+
+@pytest.mark.parametrize("route", ["bags", "rows"])
+@pytest.mark.parametrize("D", [16, 1])
+def test_segment_sum_at_wide_deep_shapes_matches_segment_reduce(dev, D,
+                                                                 route):
+    """Full-width Wide&Deep: B=65,536, Criteo Kaggle's tables, 4 zipf-1.05
+    lookups each (6.8 M lookups, a ~146 k-entry segment on the 3-row
+    table, single-lookup rows), the store's last row looked up last."""
+    B, H = 65536, 4
+    R = sum(KAGGLE_ROWS)
+    store_idx = _zipf_lookups(dev, B, KAGGLE_ROWS, H).reshape(-1)
+    store_idx[-1] = R - 1                              # the boundary row
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n_src = store_idx.shape[0] // (H if route == "bags" else 1)
+    src = torch.randn((n_src, D), generator=gen, device=dev)
+    counts = _segment_sum_on_card(store_idx, src, H if route == "bags"
+                                  else 1, R, route)
+    assert int(counts.max()) > 140000 and int(counts.min()) == 1
+
+
+@pytest.mark.parametrize("route", ["bags", "rows"])
+@pytest.mark.parametrize("D,aligned", [(16, True), (16, False), (1, True),
+                                       (3, True), (4, True), (40, True),
+                                       (33, True)])
+def test_segment_sum_at_every_width_and_segment_length(dev, D, aligned,
+                                                        route):
+    """Segments of 1 entry, around the first pass's limit (64), the ring's
+    tiles (1,024 at D=16, 2,048 entries at most) and the long list's front
+    (16,384), in shuffled order; widths on the float4 pieces (D % 4 == 0,
+    aligned) and on scalar ones (odd widths, a src one float off 16 bytes),
+    with a register sum (D <= 32) and a sum through ``vals`` (D > 32)."""
+    H = 4 if route == "bags" else 1
+    lengths = [1] * 500 + [2, 7, 63, 64, 65, 256, 1023, 1024, 1025, 2047,
+                           2048, 2049, 5000, 16383, 16384, 40000]
+    n = sum(lengths)
+    n += (-n) % 4                                      # whole bags
+    lengths[0] += n - sum(lengths)
+    R = len(lengths) + 3                               # rows never looked up
+    gen = torch.Generator(device=dev).manual_seed(D)
+    ids = torch.repeat_interleave(
+        torch.randperm(R, generator=gen, device=dev)[:len(lengths)],
+        torch.tensor(lengths, device=dev))
+    store_idx = ids[torch.randperm(n, generator=gen, device=dev)].to(
+        torch.int32)
+    n_src = n // H
+    buf = torch.randn((n_src * D + 1,), generator=gen, device=dev)
+    buf[:D] = -0.0                                     # signed zeros
+    src = (buf[:-1] if aligned else buf[1:]).view(n_src, D)
+    assert (src.data_ptr() % 16 == 0) == aligned
+    counts = _segment_sum_on_card(store_idx, src, H, R, route)
+    assert sorted(counts.tolist()) == sorted(lengths)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean", "max"])
+def test_sparse_backward_on_card_routes_and_keeps_the_bits(dev, combiner,
+                                                           weighted, padded):
+    """``sparse_row_grads`` and the autograd backward on the card: the bags
+    route for unweighted sum and mean, the rows route otherwise, with the
+    parent's rows, values and dense gradient bit for bit."""
+    rows_t = (3, 40, 96, 24)
+    offsets = fe.table_offsets(rows_t)
+    R0 = sum(rows_t)
+    layout = tpol.padded_layout_for_ranges(
+        [(0, 50), (50, 120), (120, 120), (120, R0)]) if padded else None
+    plan = tpol.EmbeddingPlan(offsets=offsets, combiner=combiner,
+                              layout=layout)
+    R = layout.padded_rows if padded else R0
+    B, T, H, D = 513, len(rows_t), 4, 16
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pool = torch.randn((R, D), generator=gen, device=dev)
+    idx = _zipf_lookups(dev, B, rows_t, H, seed=6) - torch.tensor(
+        offsets, device=dev, dtype=torch.int32)[None, :, None]
+    idx[:, :, -1] = idx[:, :, 0]
+    g = torch.randn((B, T, D), generator=gen, device=dev)
+    w = torch.rand((B, T, H), generator=gen, device=dev) + 0.1 \
+        if weighted else None
+    cuda_lib.reset_launches()
+    rows, vals, dw = fe.sparse_row_grads(pool, idx, g, w, plan=plan)
+    route = "rows" if weighted or combiner == "max" else "bags"
+    assert cuda_lib.LAUNCHES[f"segment_sum_{route}"] == 1
+    assert sum(cuda_lib.LAUNCHES.values()) == 1
+    flat = fe._flat_lookups(idx, plan.offsets)
+    store_idx = flat if layout is None else fe.translate_rows(flat, layout)
+    if route == "rows":
+        g_rows, p_dw = fe._row_cotangents(pool, store_idx, w, g,
+                                          combiner=combiner, B=B, T=T, H=H)
+        assert (dw is None) == (p_dw is None)
+        if weighted:
+            assert torch.equal(dw, p_dw.reshape(dw.shape))
+    else:
+        g_rows = g[:, :, None, :].expand(B, T, H, D)
+        g_rows = g_rows / H if combiner == "mean" else g_rows
+        assert dw is None
+    p_rows, p_vals, _ = _parent_dedupe(store_idx,
+                                       g_rows.reshape(B * T * H, D), R)
+    assert torch.equal(rows, p_rows) and torch.equal(vals, p_vals)
+    tp = pool.clone().requires_grad_()
+    out = fe.fused_embedding_bag(tp, idx, w, plan=plan)
+    (out * g).sum().backward()
+    assert torch.equal(fe.scatter_rows(rows, vals, R), tp.grad)
