@@ -13,7 +13,7 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    redesigned kernels; K1-K3's main-path kernels, K4's tensor-core and
    SIMT kernels, K5's chunked instances (head dim 256, or more than 8
    q-heads per kv-head) and the segment sum's (SS) D=16 and D=1 instances
-   must not spill.
+   must not spill, nor K1-K3's and SS's D=128 instances (DLRM-DCNv2).
 2. K1 against its plain version on the card at the full Wide&Deep shapes
    (B=512, T=26, H=4, R=3,294,238, D=16 and the wide D=1), over
    sum/mean/max x weighted/unweighted x cache off/64/26*512 rows x flat/
@@ -48,6 +48,18 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    idle share, the kernels that take the most device time, and K1 and K2
    (both pools each) and SS found by name, with their device time per call;
    fails if the trace has no device events or misses one of them.
+6 (b). the DLRM-DCNv2 benchmark cell (``dlrm_dcnv2.multihot.zipf105.b8192``:
+   B=8,192, 214 ragged lookups a sample over 26 tables, D=128, a
+   29,184,588-row store, 64 hot rows, padded n_ps=4), built by
+   ``portbench``'s driver with the benchmark's weights and batches: 5
+   fused adagrad steps in which K1 takes its D=128 route, the dedupe its
+   ragged segment sum and K2 its D=128 route, each once a step, and 5
+   fused adam steps (tables cut to 1 M rows) in which K3 takes the D=128
+   route (counts reset before, read after). Then on a batch over the
+   adagrad run's store, timed as in phase 5 beside their plain versions,
+   equal to them bit for bit: K1 (and ``F.embedding_bag`` with per-bag
+   offsets), SS on the ragged route (and the path it replaced), and K2
+   and K3 at D=128 (checked on copies of the touched rows).
 
 The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
 heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
@@ -246,8 +258,9 @@ last:
 
 Prints the ``slice``, ``lm``, ``replan``, ``selfheal``, ``lifecycle``,
 ``sim``, ``lm_zoo``, ``lm_train`` and ``single_table`` JSON lines, the
-``kernels`` JSON line (K1-K5 and SS; K1-K3 with their phase-13 launches under
-``launches_selfheal``, K1 with phase 14's under ``launches_lifecycle`` and
+``kernels`` JSON line (K1-K5 and SS; K1-K3 and SS with phase 6 (b)'s
+launches and timings under ``at_dcnv2_cell``, K1-K3 with their phase-13
+launches under ``launches_selfheal``, K1 with phase 14's under ``launches_lifecycle`` and
 phase 17's under ``launches_single_table`` with their timings under
 ``at_single_table``, K3 with its in-step time under
 ``in_step_us_per_call``, K4 and K5 with phase 15's per
@@ -396,12 +409,15 @@ PTXAS_REPORTED = {
     "decode_split_kernelILi8ELi4ELi4ELb1E":
         "K5 split D<=256 (every q and cache dtype)",
     "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
+    "bag_d128_kernelILi0E": "K1 D=128 warp (sum)",
     **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
        for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
-       for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"))},
+       for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"),
+                          ("vec128", "D=128 warp"))},
     **{f"segment_sum_{kind}_kernelI{args}E": f"SS {kind} {name}"
        for kind in ("short", "long")
-       for args, name in (("Li16ELb1", "D=16 float4"), ("Li1ELb0", "D=1"))},
+       for args, name in (("Li16ELb1", "D=16 float4"), ("Li1ELb0", "D=1"),
+                          ("Li128ELb1", "D=128 float4"))},
 }
 
 
@@ -811,35 +827,58 @@ def _time_k1(pool, idx, plan, want_route, flush):
     and layout), which must take ``want_route``: timed beside its plain
     version, ``F.embedding_bag`` on the same rows (cache-off indices), and
     its bound: the distinct cold rows, the cache, the indices and the
-    output, each moved once, at 3.35 TB/s."""
+    output, each moved once, at 3.35 TB/s. Ragged bags (the plan's
+    ``bag_sizes``, ``idx`` (B, sum(sizes))) are also held bit for bit
+    against the plain version, and the library call takes per-bag
+    offsets."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_embedding as fe
-    B, T, H = idx.shape
+    sizes = plan.bag_sizes
+    if sizes is None:
+        B, T, H = idx.shape
+    else:
+        (B, L), T, H = idx.shape, len(sizes), 0
     D = pool.shape[1]
     plan = plan.with_combiner("sum")
     enc, cache = fe.kernel_inputs(pool, idx, plan)
-    ours = fe.embedding_bag_cuda(pool, enc, None, cache, "sum")
+    ours = fe.embedding_bag_cuda(pool, enc, None, cache, "sum", sizes)
     route = fe.bag_route(D, H, pool, enc, ours,
                          *(x for x in (cache,) if x is not None))
     check(route == want_route,
           f"K1 at D={D} takes the {route} route, not {want_route}")
+    if sizes is not None:
+        check(torch.equal(ours, fe.embedding_bag_plain(
+            pool, enc, None, cache, "sum", sizes)),
+              f"K1 at D={D} on ragged bags differs from its plain version")
     k_ms = time_ms(lambda: fe.embedding_bag_cuda(pool, enc, None, cache,
-                                                 "sum"), flush)
+                                                 "sum", sizes), flush)
     p_ms = time_ms(lambda: fe.embedding_bag_plain(pool, enc, None, cache,
-                                                  "sum"), flush)
+                                                  "sum", sizes), flush)
     # the yardstick: one library call on the same rows (cache-off indices)
     store_rows, _ = fe.kernel_inputs(
         pool, idx, dataclasses.replace(plan, table_hot=None))
-    bag_idx = store_rows.reshape(B * T, H).long()
-    ones = torch.ones(bag_idx.shape, device=pool.device)
-    lib_out = F.embedding_bag(bag_idx, pool, mode="sum",
-                              per_sample_weights=ones)
+    if sizes is None:
+        bag_idx = store_rows.reshape(B * T, H).long()
+        ones = torch.ones(bag_idx.shape, device=pool.device)
+
+        def library():
+            return F.embedding_bag(bag_idx, pool, mode="sum",
+                                   per_sample_weights=ones)
+    else:
+        bag_idx = store_rows.reshape(-1).long()
+        starts = torch.tensor(fe.bag_starts(tuple(sizes))[:-1],
+                              device=pool.device)
+        offsets = (torch.arange(B, device=pool.device)[:, None] * L
+                   + starts[None, :]).reshape(-1)
+
+        def library():
+            return F.embedding_bag(bag_idx, pool, offsets, mode="sum")
+    lib_out = library()
     check(float((lib_out.reshape(B, T, D) - ours).abs().max()) < 1e-5,
           f"embedding_bag yardstick at D={D} computes another function")
-    l_ms = time_ms(lambda: F.embedding_bag(bag_idx, pool, mode="sum",
-                                           per_sample_weights=ones), flush)
-    n = B * T * H
+    l_ms = time_ms(library, flush)
+    n = store_rows.numel()
     n_cold_rows = int(torch.unique(enc[enc >= 0]).numel())
     n_bytes = (n_cold_rows * D * 4 + (0 if cache is None else cache.numel())
                * 4 + n * 4 + B * T * D * 4)
@@ -917,22 +956,26 @@ def _cell_lookups(dev, cell="wide_deep", traffic="zipf105.b65536",
         "H": H}
 
 
-def _time_ss(store_idx, H, D, flush):
+def _time_ss(store_idx, H, D, flush, sizes=None):
     """The segment sum on the bags route for (N,) store rows ``store_idx``
     and random (N / H, D) bag cotangents: held bit for bit against its
     plain version (``g_bags[order // H]``, then ``torch.segment_reduce``)
     and timed beside it and beside the library path it replaced (the
     (N, D) copy of the expanded cotangent, the sorted gather, then
-    ``segment_reduce``). Bound: the longest segment's chain of dependent
-    adds at 4 cycles an add and the card's largest SM clock, or bytes
-    (``order``, the segment ends and the bag cotangents read once, the
-    ``n_uniq`` summed rows written) at 3.35 TB/s."""
+    ``segment_reduce``). Ragged bags of ``sizes`` lookups (``H`` 0; the
+    ragged route) read bag ``lookup_bags(order, 0, sizes)`` in place of
+    ``order // H``. Bound: the longest segment's chain of dependent adds at
+    4 cycles an add and the card's largest SM clock, or bytes (``order``,
+    the segment ends and the bag cotangents read once, the ``n_uniq``
+    summed rows written) at 3.35 TB/s."""
     import torch
     from repro_torch.kernels import fused_embedding as fe
     dev = store_idx.device
     N = store_idx.shape[0]
+    n_bags = N // H if sizes is None else N // sum(sizes) * len(sizes)
+    route = "bags" if sizes is None else "ragged"
     gen = torch.Generator(device=dev).manual_seed(D)
-    g_bags = torch.randn((N // H, D), generator=gen, device=dev)
+    g_bags = torch.randn((n_bags, D), generator=gen, device=dev)
     _, order = torch.sort(store_idx, stable=True)
     _, counts = torch.unique_consecutive(store_idx[order],
                                          return_counts=True)
@@ -940,14 +983,18 @@ def _time_ss(store_idx, H, D, flush):
     vals = torch.zeros((N, D), device=dev)
 
     def ours():
-        fe.segment_sum_cuda(order, counts, g_bags, H, vals, "bags")
+        fe.segment_sum_cuda(order, counts, g_bags, H, vals, route, sizes)
 
     def plain():
-        return torch.segment_reduce(g_bags[order // H], "sum",
-                                    lengths=counts, axis=0)
+        return torch.segment_reduce(g_bags[fe.lookup_bags(order, H, sizes)],
+                                    "sum", lengths=counts, axis=0)
 
     def library():
-        g_rows = g_bags[:, None, :].expand(N // H, H, D).reshape(N, D)
+        if sizes is None:
+            g_rows = g_bags[:, None, :].expand(N // H, H, D).reshape(N, D)
+        else:
+            g_rows = g_bags[fe.lookup_bags(torch.arange(N, device=dev), 0,
+                                           sizes)]
         return torch.segment_reduce(g_rows[order], "sum", lengths=counts,
                                     axis=0)
 
@@ -962,13 +1009,204 @@ def _time_ss(store_idx, H, D, flush):
     l_ms = time_ms(library, flush)
     longest = int(counts.max())
     chain_ms = longest * 4 / (_max_sm_mhz() * 1e3)
-    n_bytes = 8 * N + 8 * n_uniq + 4 * D * (N // H + n_uniq)
+    n_bytes = 8 * N + 8 * n_uniq + 4 * D * (n_bags + n_uniq)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": max(chain_ms, bytes_ms),
             "bound_by": "add chain" if chain_ms >= bytes_ms else "bytes",
             "chain_ms": chain_ms, "bytes_ms": bytes_ms, "bytes": n_bytes,
             "N": N, "n_uniq": n_uniq, "longest": longest}
+
+
+DCNV2_CELL = "dlrm_dcnv2.multihot.zipf105.b8192"
+DCNV2_SEED = 3300000001
+DCNV2_STEPS = 5
+DCNV2_ADAM_ROWS = 1_000_000   # K3's run: each table cut to this many rows
+
+
+def _dcnv2_run(dev, optimizer, expect, max_rows=None):
+    """``DCNV2_STEPS`` fused steps of the DLRM-DCNv2 benchmark cell's
+    program (``portbench``'s driver builds it from the cell's configuration
+    and traffic files: B=8,192, 214 ragged lookups a sample over 26 tables,
+    D=128, padded n_ps=4, 64 hot rows), its weights and batches made on the
+    card by the benchmark's generators from ``DCNV2_SEED``; with
+    ``max_rows`` each table is cut to that many rows. Counts are set to 0
+    just before the steps and read just after; fails if a kernel of
+    ``expect`` did not launch or a loss is not finite."""
+    import torch
+    from portbench import harness
+    from portbench.drivers import dlrm_dcnv2 as driver
+    from portbench.reference import dlrm_dcnv2 as reference
+    from portbench.yardstick import multihot
+    from portbench.yardstick import traffic as gen
+    from repro_torch.kernels import cuda_lib
+    found = harness.resolve(harness.load_spec(), DCNV2_CELL)
+    config = found.config
+    if max_rows:
+        config = dict(config, table_rows=[min(r, max_rows)
+                                          for r in config["table_rows"]])
+    traffic = dict(found.traffic, pool_batches=DCNV2_STEPS)
+    cfg = driver.program_config(config, traffic)
+    state, step, layout = driver.build(cfg, traffic, reference.make_weights(
+        config, gen.generator(DCNV2_SEED, gen.WEIGHTS_STREAM, dev)),
+        optimizer)
+    batches = multihot.make_pool(config, traffic, DCNV2_SEED, dev)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    counts = dict(cuda_lib.LAUNCHES)
+    for kernel in expect:
+        check(counts[kernel] > 0,
+              f"{kernel} never launched in the DCNv2 cell's {optimizer} run")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite DCNv2 loss ({optimizer}): {losses}")
+    plan = cfg.embedding_plan(layout=layout, sparse_update=True)
+    return {"cfg": cfg, "plan": plan, "state": state, "batch": batches[0],
+            "counts": counts, "losses": losses}
+
+
+def _time_rows_d128(kernel, params, pools, rows, vals, flush):
+    """K2 (``pools`` [acc]) or K3 (``pools`` [m, v]) at D=128 on the
+    deduped rows (``rows``, ``vals``) of a DCNv2 batch over the cell's
+    whole store, in place: held bit for bit against its plain version on
+    copies of the touched rows (K3 from random moments), then timed beside
+    it. Bound: 5 (K2) or 7 (K3) words per live row element plus a row id
+    per entry."""
+    import torch
+    from repro_torch.kernels import fused_update as fu
+    dev = params.device
+    R, D = params.shape
+    N = rows.shape[0]
+    live = (rows >= 0) & (rows < R)
+    n_live = int(live.sum())
+    touched = rows[live].long()
+    # the touched rows as a store of their own: live entry k reads row k
+    compact = torch.where(live, torch.cumsum(live, 0) - 1,
+                          torch.full_like(rows, n_live)).to(torch.int32)
+    route = fu.update_route(D, params, vals, *pools)
+    check(route == "vector" and D == 128,
+          f"{kernel} at D={D} takes the {route} route, not the D=128 one")
+    if kernel == "adagrad_row_update":
+        start = [params[touched], pools[0][touched]]
+        kw, words, flops, extra = dict(lr=3e-3, eps=1e-10), 5, 6, 0
+        k_fn, p_fn, args = fu.adagrad_rows_cuda, fu.adagrad_rows_plain, ()
+    else:
+        gen = torch.Generator(device=dev).manual_seed(128)
+        v0 = torch.rand((n_live, D), generator=gen, device=dev)
+        start = [params[touched], v0 - 0.5, v0]
+        kw, words, flops, extra = dict(lr=3e-3, b1=0.9, b2=0.999, eps=1e-8,
+                                       wd=0.0), 7, 14, 8
+        k_fn, p_fn = fu.adam_rows_cuda, fu.adam_rows_plain
+        args = (fu.adam_bias(7, 0.9, 0.999, dev),)
+    ours = [x.clone() for x in start]
+    plain = [x.clone() for x in start]
+    k_fn(*ours, compact, vals, *args, **kw)
+    p_fn(*plain, compact, vals, *args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(ours, plain)),
+          f"{kernel} at D=128 differs from its plain version")
+    del start, ours, plain
+    k_ms = time_ms(lambda: k_fn(params, *pools, rows, vals, *args, **kw),
+                   flush)
+    p_ms = time_ms(lambda: p_fn(params, *pools, rows, vals, *args, **kw),
+                   flush)
+    b_ms, b_by = bound_ms(n_live * D * 4 * words + N * 4 + extra,
+                          n_live * D * flops)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return {"route": route, "blocks": fu.update_plan(N, D, sms, route),
+            "live_rows": n_live, "entries": N, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_dcnv2(report, dev, kernels):
+    """Phase 6 (b): the kernels of the DLRM-DCNv2 benchmark cell at its
+    shapes. ``DCNV2_STEPS`` fused adagrad steps of the cell's program, where
+    K1 must take its D=128 route, the dedupe its ragged segment sum and K2
+    its D=128 route, each exactly once a step; as many fused adam steps on
+    the cell cut to ``DCNV2_ADAM_ROWS`` rows a table, where K3 must take the
+    D=128 route. Then on the first batch over the adagrad run's store:
+    K1 (bit for bit against its plain version; ``F.embedding_bag`` with
+    per-bag offsets), SS on the ragged route and K2/K3 at D=128, timed as
+    in phase 5; each entry of ``kernels`` gets them under
+    ``at_dcnv2_cell``."""
+    import torch
+    from repro_torch.kernels import fused_embedding as fe
+    from repro_torch.models.dlrm import _pool2d
+    log(f"phase 6 (b) DCNv2: {DCNV2_STEPS} fused adam steps, tables cut to "
+        f"{DCNV2_ADAM_ROWS:,} rows")
+    c_adam = _dcnv2_run(dev, "adam", (
+        "embedding_bag_d128", "segment_sum_ragged", "adam_row_update",
+        "row_update_d128"), max_rows=DCNV2_ADAM_ROWS)["counts"]
+    torch.cuda.empty_cache()
+    log(f"phase 6 (b) DCNv2: {DCNV2_STEPS} fused adagrad steps of "
+        f"{DCNV2_CELL}")
+    run = _dcnv2_run(dev, "adagrad", (
+        "embedding_bag_d128", "segment_sum_ragged", "adagrad_row_update",
+        "row_update_d128"))
+    c_main = run["counts"]
+    per_step = {k: c_main[k] / DCNV2_STEPS for k in (
+        "fused_embedding_bag", "embedding_bag_d128", "embedding_bag_ragged",
+        "segment_sum_ragged", "segment_sum_bags", "adagrad_row_update",
+        "row_update_d128")}
+    want = {"fused_embedding_bag": 1, "embedding_bag_d128": 1,
+            "embedding_bag_ragged": 0, "segment_sum_ragged": 1,
+            "segment_sum_bags": 0, "adagrad_row_update": 1,
+            "row_update_d128": 1}
+    check(per_step == want, f"DCNv2 launches a step {per_step}, not {want}")
+    cfg, plan, state = run["cfg"], run["plan"], run["state"]
+    sizes = cfg.bag_sizes
+    idx = run["batch"]["sparse"]
+    del run
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    pool = _pool2d(state["params"]["tables"], plan.layout)
+    k1 = _time_k1(pool, idx, plan, "d128", flush)
+    store_idx = fe.translate_rows(
+        fe._flat_lookups(idx, plan.offsets, sizes), plan.layout)
+    ss = _time_ss(store_idx, 0, cfg.embed_dim, flush, sizes)
+    g_bags = torch.randn((idx.shape[0] * len(sizes), cfg.embed_dim),
+                         generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+    rows, vals = fe.dedupe_bags(store_idx, g_bags, 0, pool.shape[0], sizes)
+    del g_bags, store_idx
+    acc = _pool2d(state["opt"]["acc"]["tables"], plan.layout)
+    del state
+    k23 = {"adagrad_row_update": _time_rows_d128(
+        "adagrad_row_update", pool, [acc], rows, vals, flush)}
+    del acc                                  # room for K3's two moments
+    torch.cuda.empty_cache()
+    k23["adam_row_update"] = _time_rows_d128(
+        "adam_row_update", pool, [torch.zeros_like(pool),
+                                  torch.zeros_like(pool)], rows, vals, flush)
+    del pool, rows, vals
+    at = {"cell": DCNV2_CELL, "seed": DCNV2_SEED, "B": idx.shape[0],
+          "lookups_per_sample": idx.shape[1], "D": cfg.embed_dim}
+    extra = {
+        "K1": {**k1, "launches": c_main["embedding_bag_d128"]},
+        "K2": {**k23["adagrad_row_update"],
+               "launches": c_main["row_update_d128"]},
+        "K3": {**k23["adam_row_update"],
+               "launches": c_adam["row_update_d128"]},
+        "SS": {**ss, "launches": c_main["segment_sum_ragged"]}}
+    for entry in kernels:
+        key = entry["name"].split()[0]
+        if key in extra:
+            entry["at_dcnv2_cell"] = {"at": at, **extra[key]}
+    report["dcnv2"] = {"at": at, "launches": c_main,
+                       "launches_adam": c_adam, "k1": k1, "k2_k3": k23,
+                       "segment_sum": ss}
+    log(f"  K1 D=128: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+        f"library {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}; {k1['cold_rows']} cold rows)")
+    log(f"  SS ragged: {ss['ms']:.4f} ms, plain {ss['plain_ms']:.4f} ms, "
+        f"library {ss['library_ms']:.4f} ms, bound {ss['bound_ms']:.4f} ms "
+        f"({ss['bound_by']}; longest segment {ss['longest']})")
+    for kernel in ("adagrad_row_update", "adam_row_update"):
+        t = k23[kernel]
+        log(f"  {kernel} D=128: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
+            f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['live_rows']} live rows)")
 
 
 def _max_sm_mhz() -> float:
@@ -3517,6 +3755,8 @@ def main() -> int:
         kernels = phase_timing(report, dev, run, c_main, c_adam, errs)
         slice_info["profile"] = phase_profile(report, dev, run)
         del run
+        torch.cuda.empty_cache()
+        phase_dcnv2(report, dev, kernels)
         torch.cuda.empty_cache()
         replan_line = phase_replan(report, dev,
                                    slice_info["launcher_steps_per_s"])

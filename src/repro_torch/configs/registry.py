@@ -1,7 +1,8 @@
 """Arch-id → config resolution for ``--arch <id>``: DLRMs and the LM zoo.
 
 Port of ``repro/configs/registry.py``: the ten LM archs, the three DLRMs,
-the input shapes and the (arch × shape) cells.
+the input shapes and the (arch × shape) cells; and DLRM-DCNv2, which the
+reference has not.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from repro_torch.configs import (
 from repro_torch.configs.base import (
     SHAPES, ModelConfig, ShapeConfig, shape_applicable,
 )
-from repro_torch.configs.dlrm_models import DCN, WIDE_DEEP, XDEEPFM, DLRMConfig
+from repro_torch.configs.dlrm_models import (
+    DCN, DLRM_DCNV2, WIDE_DEEP, XDEEPFM, DLRMConfig,
+)
 
 ARCHS: Dict[str, ModelConfig] = {
     "llama3.2-3b": llama3_2_3b.CONFIG,
@@ -34,6 +37,7 @@ DLRMS: Dict[str, DLRMConfig] = {
     "wide_deep": WIDE_DEEP,
     "xdeepfm": XDEEPFM,
     "dcn": DCN,
+    "dlrm_dcnv2": DLRM_DCNV2,
 }
 
 

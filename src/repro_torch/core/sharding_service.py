@@ -399,7 +399,8 @@ class HotTableTracker:
                  trigger: float = 1.2, min_gain: float = 0.05,
                  cooldown: int = 8, min_lookups: int = 1024,
                  initial_ranges: Optional[Sequence[Tuple[int, int]]] = None,
-                 initial_hot: Optional[Sequence[int]] = None):
+                 initial_hot: Optional[Sequence[int]] = None,
+                 bag_sizes: Optional[Sequence[int]] = None):
         """Args:
           table_rows:  per-table row counts (pooled layout, like the config's
                        ``table_rows``).
@@ -416,12 +417,15 @@ class HotTableTracker:
                        layout-stamped checkpoint on resume; default = uniform
                        striping (no plan applied yet).
           initial_hot: the cache plan already in effect (same provenance).
+          bag_sizes:   per-table lookups of ragged (B, sum) batches, or
+                       None for (B, T, H) ones.
         """
         from repro_torch.kernels.fused_embedding import table_offsets
         from repro_torch.sharding.policy import uniform_vocab_ranges
         self.table_rows = tuple(int(r) for r in table_rows)
         self.offsets = np.asarray(table_offsets(self.table_rows), np.int64)
         self.total_rows = int(sum(self.table_rows))
+        self.bag_sizes = bag_sizes
         self.n_ps = int(n_ps)
         self.hot_budget = int(hot_budget)
         self.decay = float(decay)
@@ -445,15 +449,17 @@ class HotTableTracker:
 
     # ------------------------------------------------------------- observing
     def observe(self, sparse: np.ndarray) -> None:
-        """Fold one batch of (B, T, H) per-table-local ids into the window.
+        """Fold one batch of (B, T, H) per-table-local ids (or ragged (B,
+        sum(bag_sizes)) ones) into the window.
 
         Ids are in the *current layout* space — i.e. whatever the training
         step actually looks up (post-remap after earlier re-plans), which is
         exactly what workers see and report.
         """
+        from repro_torch.kernels.fused_embedding import column_values
         sparse = np.asarray(sparse)
-        flat = (sparse.astype(np.int64)
-                + self.offsets[None, :, None]).reshape(-1)
+        flat = (sparse.astype(np.int64) + column_values(
+            self.offsets, sparse.ndim, self.bag_sizes)).reshape(-1)
         with self._lock:
             self.counts *= self.decay
             self.counts += np.bincount(flat, minlength=self.total_rows)

@@ -34,8 +34,21 @@
 //   main path's 13,312 bags make 208 blocks and reach every SM. 4 lanes per
 //   bag, one lookup each, combined by shuffles, measured the same or
 //   0.1 us slower (commit 8a45165, PERF.md).
+// * D=128, any bags (d128 route; DLRM-DCNv2's 26 tables of 1 to 100
+//   lookups): a warp owns a bag, lane l a float4 of its row (32 x 4 =
+//   128). The lanes load up to 32 of the bag's indices (and weights) at
+//   once, one each, in one coalesced load; __shfl_sync hands them out 8 at
+//   a time, and each lane issues those 8 row pieces before it combines
+//   them in order. A 100-lookup bag is 13 such rounds of 8 rows in flight;
+//   one thread walking 128 x 100 scalar loads (the generic route) would be
+//   12,800 dependent round trips.
 // * Any other (D, H), or arrays not on 16 bytes (generic route): a thread
 //   owns a bag and walks its D outputs and H lookups with runtime bounds.
+// Ragged bags (bag_start non-null): table t has H_t lookups, bag (b, t)
+// reads lookups [b*L + bag_start[t], b*L + bag_start[t+1]) of the
+// sample-major (B, L) indices, L = sum_t H_t; they take the d128 route or
+// the generic one. With every H_t equal the caller passes H and no starts:
+// the layout is then the (B, T, H) one.
 // A row's address needs nothing but its index (a cache slot or a clamped
 // pool row, never a load), so nvcc issues all of a bag's row loads before
 // the first combine; `cuobjdump -sass` shows one index load, then the 4 row
@@ -66,11 +79,15 @@ constexpr int kMax = 2;
 constexpr int kGeneric = 0;
 constexpr int kVector = 1;
 constexpr int kWide = 2;
+constexpr int kD128 = 3;
 
 // threads per block: BAG_THREADS in kernels/fused_embedding.py
 constexpr int kVecThreads = 256;
 constexpr int kWideThreads = 64;
 constexpr int kAnyThreads = 256;
+constexpr int kD128Threads = 256;
+constexpr int kD128Flight = 8;  // d128 route: rows a lane has in flight
+constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kH = 4;           // lookups per bag on the vector and wide routes
 
@@ -182,6 +199,73 @@ __global__ void __launch_bounds__(kWideThreads) bag_wide_kernel(
   out[bag] = combine4<COMBINER>(x, weighted, w);
 }
 
+// The first lookup of a bag and its length: bag * H and H, or for ragged
+// bags (starts non-null) b * L + starts[t] and starts[t+1] - starts[t].
+struct BagSpan {
+  long long first;
+  int len;
+};
+
+__device__ __forceinline__ BagSpan bag_span(long long bag, int H,
+                                            const int32_t* starts, int T,
+                                            int L) {
+  if (starts == nullptr) return {bag * H, H};
+  const long long b = bag / T;
+  const int t = (int)(bag - b * T);
+  const int s = __ldg(starts + t);
+  return {b * L + s, __ldg(starts + t + 1) - s};
+}
+
+// ---------------------------------------------------------------------------
+// D=128, d128 route: a warp per bag, a float4 of the row per lane. The
+// minimum of one block an SM lets ptxas (CUDA 12.9) take the 70 registers
+// the 8 rows in flight need; without it it stops at 64 and spills 8 bytes
+// (3 resident blocks an SM instead of 4: 0.254 ms instead of 0.238 ms on a
+// DCNv2 batch on the H100, no spill kept on the main path).
+// ---------------------------------------------------------------------------
+template <int COMBINER>
+__global__ void __launch_bounds__(kD128Threads, 1) bag_d128_kernel(
+    const float* __restrict__ pool, long long R,
+    const int32_t* __restrict__ enc, const float* __restrict__ weights,
+    const float* __restrict__ cache, long long K, float* __restrict__ out,
+    long long n_bags, int H, const int32_t* __restrict__ starts, int T,
+    int L) {
+  constexpr int D = 128;
+  const long long bag =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (bag >= n_bags) return;                  // the whole warp leaves
+  const int lane = threadIdx.x & 31;
+  const BagSpan span = bag_span(bag, H, starts, T, L);
+  const bool weighted = weights != nullptr;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = 0; j0 < span.len; j0 += 32) {
+    const int n = min(32, span.len - j0);
+    const long long at = span.first + j0 + lane;
+    const int my_v = lane < n ? __ldg(enc + at) : 0;
+    const float my_w = weighted && lane < n ? __ldg(weights + at) : 1.f;
+    for (int u0 = 0; u0 < n; u0 += kD128Flight) {
+      float4 x[kD128Flight];
+#pragma unroll
+      for (int u = 0; u < kD128Flight; ++u) {
+        const int v = __shfl_sync(kFullMask, my_v, (u0 + u) & 31);
+        x[u] = u0 + u < n
+                   ? __ldg(reinterpret_cast<const float4*>(
+                               lookup(pool, R, cache, K, v, D)) + lane)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kD128Flight; ++u) {
+        const float w = __shfl_sync(kFullMask, my_w, (u0 + u) & 31);
+        if (u0 + u < n)
+          acc = combine<COMBINER>(acc, weighted ? scale(x[u], w) : x[u],
+                                  j0 + u0 + u);
+      }
+    }
+  }
+  reinterpret_cast<float4*>(out)[bag * (D / 4) + lane] =
+      finish<COMBINER>(acc, span.len);
+}
+
 // ---------------------------------------------------------------------------
 // any other (D, H), generic route: a bag per thread, runtime bounds
 // ---------------------------------------------------------------------------
@@ -190,12 +274,15 @@ __global__ void __launch_bounds__(kAnyThreads) bag_any_kernel(
     const float* __restrict__ pool, long long R,
     const int32_t* __restrict__ enc, const float* __restrict__ weights,
     const float* __restrict__ cache, long long K, float* __restrict__ out,
-    long long n_bags, int H, int D) {
+    long long n_bags, int H, int D, const int32_t* __restrict__ starts,
+    int T, int L) {
   const long long bag = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (bag >= n_bags) return;
-  const int32_t* bag_idx = enc + bag * H;
-  const float* bag_w = weights == nullptr ? nullptr : weights + bag * H;
+  const BagSpan span = bag_span(bag, H, starts, T, L);
+  const int32_t* bag_idx = enc + span.first;
+  const float* bag_w = weights == nullptr ? nullptr : weights + span.first;
   float* bag_out = out + bag * D;
+  H = span.len;
   for (int d = 0; d < D; ++d) {
     float acc = 0.f;
     for (int j = 0; j < H; ++j) {
@@ -214,7 +301,8 @@ bool aligned16(const void* p) {
 template <int COMBINER>
 int launch(int route, int blocks, cudaStream_t s, const float* pool,
            long long R, const int32_t* enc, const float* w, const float* c,
-           long long K, float* o, long long n_bags, int H, int D) {
+           long long K, float* o, long long n_bags, int H, int D,
+           const int32_t* starts, int T, int L) {
   switch (route) {
     case kVector:
       bag_vec16_kernel<COMBINER><<<blocks, kVecThreads, 0, s>>>(
@@ -224,28 +312,40 @@ int launch(int route, int blocks, cudaStream_t s, const float* pool,
       bag_wide_kernel<COMBINER><<<blocks, kWideThreads, 0, s>>>(
           pool, R, enc, w, c, K, o, n_bags);
       break;
+    case kD128:
+      bag_d128_kernel<COMBINER><<<blocks, kD128Threads, 0, s>>>(
+          pool, R, enc, w, c, K, o, n_bags, H, starts, T, L);
+      break;
     default:
       bag_any_kernel<COMBINER><<<blocks, kAnyThreads, 0, s>>>(
-          pool, R, enc, w, c, K, o, n_bags, H, D);
+          pool, R, enc, w, c, K, o, n_bags, H, D, starts, T, L);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `route` and `blocks` come from `bag_route`/`bag_plan`; a vector or wide
-// route whose shape or alignment does not hold is refused here.
+// `route` and `blocks` come from `bag_route`/`bag_plan`; a vector, wide or
+// d128 route whose shape or alignment does not hold is refused here.
+// Ragged bags pass `starts` (T + 1 int32 on the device), T and L (the
+// lookups of a sample), and H = 0; the vector and wide routes take none.
 extern "C" int repro_fused_embedding_bag_f32(
     const void* pool, long long R, const void* enc, const void* weights,
     const void* cache, long long K, void* out, long long n_bags, int H,
-    int D, int combiner, int route, int blocks, void* stream) {
+    int D, int combiner, int route, int blocks, const void* starts, int T,
+    int L, void* stream) {
   if (n_bags * D == 0) return 0;
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  if (route < kGeneric || route > kWide ||
+  if (route < kGeneric || route > kD128 ||
       combiner < kSum || combiner > kMax)
     return (int)cudaErrorInvalidValue;
+  if ((starts == nullptr) != (H > 0) || (starts != nullptr && T <= 0))
+    return (int)cudaErrorInvalidValue;
   if (route != kGeneric) {
-    const bool shape = H == kH && D == (route == kVector ? 16 : 1);
+    const bool shape =
+        route == kD128 ? D == 128
+                       : starts == nullptr && H == kH &&
+                             D == (route == kVector ? 16 : 1);
     const bool aligned = aligned16(pool) && aligned16(enc) &&
                          aligned16(out) && aligned16(weights) &&
                          aligned16(cache);    // null is aligned
@@ -257,14 +357,17 @@ extern "C" int repro_fused_embedding_bag_f32(
   const int32_t* e = static_cast<const int32_t*>(enc);
   const float* w = static_cast<const float*>(weights);
   const float* c = static_cast<const float*>(cache);
+  const int32_t* st = static_cast<const int32_t*>(starts);
   float* o = static_cast<float*>(out);
   switch (combiner) {
     case kSum:
-      return launch<kSum>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D);
+      return launch<kSum>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D,
+                          st, T, L);
     case kMean:
       return launch<kMean>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H,
-                           D);
+                           D, st, T, L);
     default:
-      return launch<kMax>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D);
+      return launch<kMax>(route, blocks, s, p, R, e, w, c, K, o, n_bags, H, D,
+                          st, T, L);
   }
 }

@@ -32,6 +32,14 @@
 //     the row's lanes.
 //   - D=1, the wide pool (scalar route): a thread takes one entry, then one
 //     scattered word per pool.
+//   - D=128, DLRM-DCNv2's pool (vector route): a warp owns a row, lane l
+//     its float4 l. The lanes load 32 row ids at once (one coalesced load)
+//     and the warp walks the live ones (a ballot), two rows at a time, so
+//     a lane has 6 float4 loads in flight and a padding entry costs a
+//     thirty-second of a load. One thread walking a row's 32 float4s one
+//     after another (the generic route below) took 3.44 ms for the 447,794
+//     rows of the DCNv2 cell's batch, 10 % of their bytes' bound
+//     (PERF.md).
 //   - Any other width: one thread per entry walks its row, in float4s when
 //     D % 4 == 0 and every array starts on 16 bytes (vector route), else in
 //     floats.
@@ -222,6 +230,59 @@ __global__ void __launch_bounds__(kThreads) rows_wide_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// D=128, vector route: a warp per row, a float4 a lane, two rows at a time
+// ---------------------------------------------------------------------------
+template <class Op>
+__global__ void __launch_bounds__(kThreads) rows_vec128_kernel(
+    Op op, Pools<Op::kPools> pools, const int32_t* __restrict__ rows,
+    const float* __restrict__ vals, long long N, long long R, int) {
+  constexpr int K = Op::kPools;
+  constexpr int kPieces = 128 / 4;              // float4s per row: a lane each
+  const Op o = op.ready();
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  const float4* g4 = reinterpret_cast<const float4*>(vals);
+  for (long long base = warp * 32; base < N; base += n_warps * 32) {
+    const int mine = base + lane < N ? __ldg(rows + base + lane) : -1;
+    unsigned todo = __ballot_sync(kFullMask, live(mine, R));
+    while (todo) {                     // the same on every lane of the warp
+      const int i0 = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int i1 = todo ? __ffs(todo) - 1 : -1;
+      if (i1 >= 0) todo &= todo - 1;
+      const int r0 = __shfl_sync(kFullMask, mine, i0);
+      const int r1 = __shfl_sync(kFullMask, mine, i1 < 0 ? i0 : i1);
+      const long long o0 = (long long)r0 * kPieces + lane;
+      const long long o1 = (long long)r1 * kPieces + lane;
+      const float4 g0 = __ldg(g4 + (base + i0) * kPieces + lane);
+      float4 s0[K], s1[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        s0[k] = reinterpret_cast<const float4*>(pools.p[k])[o0];
+      float4 g1 = g0;
+      if (i1 >= 0) {
+        g1 = __ldg(g4 + (base + i1) * kPieces + lane);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          s1[k] = reinterpret_cast<const float4*>(pools.p[k])[o1];
+      }
+      apply(o, g0, s0);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        reinterpret_cast<float4*>(pools.p[k])[o0] = s0[k];
+      if (i1 >= 0) {
+        apply(o, g1, s1);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          reinterpret_cast<float4*>(pools.p[k])[o1] = s1[k];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // any other width: one thread per entry walks its row in W-float pieces
 // ---------------------------------------------------------------------------
 template <int W> struct Piece;
@@ -260,6 +321,7 @@ __global__ void __launch_bounds__(kThreads) rows_any_kernel(
 template <class Op>
 RowsKernel<Op> pick(int D, int vec) {
   if (vec && D == 16) return rows_vec16_kernel<Op>;
+  if (vec && D == 128) return rows_vec128_kernel<Op>;
   if (!vec && D == 1) return rows_wide_kernel<Op>;
   return vec ? rows_any_kernel<Op, 4> : rows_any_kernel<Op, 1>;
 }

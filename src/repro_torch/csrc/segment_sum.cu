@@ -18,7 +18,10 @@
 // per-lookup cotangents (the rows route: max and weighted bags); H > 1
 // reads the (B*T, D) bag cotangent, which every lookup of an unweighted
 // sum or mean bag shares (the bags route), so neither the (N, D) copy of
-// the expanded cotangent nor the sorted gather of it exists.
+// the expanded cotangent nor the sorted gather of it exists. Ragged bags
+// (DLRM-DCNv2: table t has H_t lookups a sample, sample-major, L = sum_t
+// H_t) read bag (o / L) * T + cols[o % L] for lookup o, through the
+// plan's (L,) column-to-table map `cols`.
 //
 // Bound on this card: the longest segment's chain of dependent adds, then
 // bytes. Wide&Deep's longest segment is ~146 k adds in each column, ~0.3 ms
@@ -97,12 +100,24 @@ __device__ __forceinline__ void store(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+// which row of `src` lookup o reads: o / H, or for ragged bags (cols
+// non-null) (o / L) * T + cols[o % L]
+struct BagMap {
+  unsigned H;
+  const int* cols;
+  unsigned L, T;
+};
+
+__device__ __forceinline__ unsigned bag_of(unsigned o, const BagMap& m) {
+  if (m.cols != nullptr) return (o / m.L) * m.T + __ldg(m.cols + o % m.L);
+  return m.H == 1 ? o : o / m.H;
+}
+
 // the row of `src` that sorted entry k reads (order[k] < 2^31: the wrapper
 // checks N)
 __device__ __forceinline__ unsigned src_row(const long long* order,
-                                            long long k, unsigned H) {
-  const unsigned o = static_cast<unsigned>(__ldg(order + k));
-  return H == 1 ? o : o / H;
+                                            long long k, const BagMap& m) {
+  return bag_of(static_cast<unsigned>(__ldg(order + k)), m);
 }
 
 __device__ __forceinline__ long long seg_begin(const long long* ends,
@@ -116,7 +131,7 @@ __device__ __forceinline__ long long seg_begin(const long long* ends,
 template <int kD, bool kVec>
 __global__ void __launch_bounds__(kShortThreads) segment_sum_short_kernel(
     const long long* __restrict__ order, const long long* __restrict__ ends,
-    const float* __restrict__ src, long long n_uniq, int d_rt, unsigned H,
+    const float* __restrict__ src, long long n_uniq, int d_rt, BagMap H,
     float* __restrict__ vals, int* work, int* long_ids) {
   using T = typename Piece<kVec>::T;
   constexpr int W = Piece<kVec>::W;
@@ -189,7 +204,7 @@ __device__ __forceinline__ float chain(const float* p, int n, int d_rt,
 template <int kD, bool kVec>
 __global__ void __launch_bounds__(kLongThreads) segment_sum_long_kernel(
     const long long* __restrict__ order, const long long* __restrict__ ends,
-    const float* __restrict__ src, long long n_uniq, int d_rt, unsigned H,
+    const float* __restrict__ src, long long n_uniq, int d_rt, BagMap H,
     int tile, float* __restrict__ vals, int* work,
     const int* __restrict__ long_ids) {
   using T = typename Piece<kVec>::T;
@@ -256,7 +271,7 @@ __global__ void __launch_bounds__(kLongThreads) segment_sum_long_kernel(
           const int e = p + u * kLoaders;
           if (e < na) {
             const unsigned r = static_cast<unsigned>(o[u]);
-            ra[e] = H == 1 ? r : r / H;
+            ra[e] = bag_of(r, H);
           }
         }
       } else if (i >= 2) {
@@ -286,7 +301,7 @@ int tile_entries(int D) {
 
 template <int kD, bool kVec>
 int launch(const long long* order, const long long* ends, const float* src,
-           long long n_uniq, int D, unsigned H, float* vals, int* work,
+           long long n_uniq, int D, BagMap H, float* vals, int* work,
            int* long_ids, cudaStream_t stream) {
   constexpr int W = Piece<kVec>::W;
   const long long threads = n_uniq * (D / W);
@@ -325,18 +340,20 @@ bool aligned16(const void* p) {
 
 // order: (N,) int64 stable-sort permutation, N < 2^31; ends: (n_uniq,)
 // int64 inclusive cumsum of the segment lengths; src: (rows, D) f32, row
-// order[k] / H read for sorted entry k, D <= 16384 (one ring stage holds a
-// row); vals: (>= n_uniq, D) f32, rows
+// order[k] / H read for sorted entry k (for ragged bags, cols non-null:
+// (order[k] / L) * T + cols[order[k] % L]), D <= 16384 (one ring stage
+// holds a row); vals: (>= n_uniq, D) f32, rows
 // [0, n_uniq) written; work: 3 int32 zeros; long_ids: n_uniq int32
 // scratch. `vec` selects the float4 pieces (the caller checked D % 4 == 0
 // and the alignment of src and vals; refused here otherwise). Two launches
 // on `stream`; nothing for n_uniq = 0 or D = 0.
 extern "C" int repro_segment_sum_f32(
     const void* order, const void* ends, const void* src, long long n_uniq,
-    int D, int H, void* vals, void* work, void* long_ids, int vec,
-    void* stream) {
+    int D, int H, const void* cols, int L, int T, void* vals, void* work,
+    void* long_ids, int vec, void* stream) {
   if (n_uniq == 0 || D == 0) return 0;
   if (H < 1 || D < 0 || D > kTileFloats) return (int)cudaErrorInvalidValue;
+  if (cols != nullptr && (L < 1 || T < 1)) return (int)cudaErrorInvalidValue;
   if (vec && (D % 4 != 0 || !aligned16(src) || !aligned16(vals)))
     return (int)cudaErrorMisalignedAddress;
   const auto* o = static_cast<const long long*>(order);
@@ -346,11 +363,14 @@ extern "C" int repro_segment_sum_f32(
   auto* w = static_cast<int*>(work);
   auto* l = static_cast<int*>(long_ids);
   auto st = static_cast<cudaStream_t>(stream);
-  const unsigned h = static_cast<unsigned>(H);
+  const BagMap h{static_cast<unsigned>(H), static_cast<const int*>(cols),
+                 static_cast<unsigned>(L), static_cast<unsigned>(T)};
   if (vec && D == 16)
     return launch<16, true>(o, e, s, n_uniq, D, h, v, w, l, st);
   if (!vec && D == 1)
     return launch<1, false>(o, e, s, n_uniq, D, h, v, w, l, st);
+  if (vec && D == 128)
+    return launch<128, true>(o, e, s, n_uniq, D, h, v, w, l, st);
   if (vec) return launch<0, true>(o, e, s, n_uniq, D, h, v, w, l, st);
   return launch<0, false>(o, e, s, n_uniq, D, h, v, w, l, st);
 }

@@ -11,7 +11,9 @@ import it freely.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel and nowhere else; the segment sum's wrapper
-adds one a call (two launches) under the route it took. ``ROW_COUNTS`` counts the
+adds one a call (two launches) under the route it took; K1's adds one
+to ``fused_embedding_bag`` a launch and one more under its D=128 or
+ragged route. ``ROW_COUNTS`` counts the
 rows of the sparse backward and the row updates, on every device: the
 distinct rows ``fused_embedding.dedupe_rows`` finds, and the entries the
 row updates (K2/K3 or their plain versions) walk, padding included. Both
@@ -48,6 +50,10 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,        # K5
     "segment_sum_bags": 0,        # the dedupe's segment sum, bags route
     "segment_sum_rows": 0,        # the dedupe's segment sum, rows route
+    "segment_sum_ragged": 0,      # the bags route of ragged bags
+    "embedding_bag_d128": 0,      # K1's D=128 route (a warp per bag)
+    "embedding_bag_ragged": 0,    # K1's generic route on ragged bags
+    "row_update_d128": 0,         # K2/K3's D=128 route (a warp per row)
 }
 ROW_COUNTS: Dict[str, int] = {
     "rows_deduped": 0,            # fused_embedding.dedupe_rows
@@ -60,7 +66,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_fused_embedding_bag_f32":
-        [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _I, _I, _I, _I, _VP],
+        [_VP, _LL, _VP, _VP, _VP, _LL, _VP, _LL, _I, _I, _I, _I, _I, _VP, _I,
+         _I, _VP],
     "repro_adagrad_rows_f32":
         [_VP, _VP, _LL, _I, _VP, _VP, _LL, _F, _F, _I, _I, _VP],
     "repro_adam_rows_f32":
@@ -76,7 +83,7 @@ _SIGNATURES = {
         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
          _I, _I, _F, _F, _I, _I, _VP],
     "repro_segment_sum_f32":
-        [_VP, _VP, _VP, _LL, _I, _I, _VP, _VP, _VP, _I, _VP],
+        [_VP, _VP, _VP, _LL, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
 }
 
 _loaded: List[ctypes.CDLL] = []

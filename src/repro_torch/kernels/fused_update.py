@@ -11,10 +11,12 @@ the pools in place: the full-width pools are 211 MB each, and a touched-rows
 update should move only the touched rows.
 
 * CUDA tensors launch K2/K3 (``csrc/fused_update.cu``). ``update_route``
-  picks the vector route (float4 pieces of a row) or the scalar route from
-  the width and the alignment of the arrays; ``update_plan`` sizes the
-  grid, one wave at most, from the entry count, the width and the SM
-  count.
+  picks the vector route (float4 pieces of a row: 4 lanes a row at D=16,
+  a warp a row at D=128, a thread a row at any other width) or the scalar
+  route from the width and the alignment of the arrays; ``update_plan``
+  sizes the grid, one wave at most, from the entry count, the width and
+  the SM count. A launch at D=128 adds one to
+  ``cuda_lib.LAUNCHES["row_update_d128"]`` besides its kernel's count.
 * Padding is any row outside ``[0, R)``. The dedupe pads with ``R``; a
   negative id is padding too (the reference's scatter would wrap it), so
   both versions skip it.
@@ -59,10 +61,10 @@ def update_plan(N: int, D: int, sm_count: int, route: str = "vector") -> int:
     width-``D`` pool on a card of ``sm_count`` SMs.
 
     D=16 on the vector route: ``VEC_LANES`` threads per entry. Any other
-    case: a thread per entry. The grid covers that work and holds no more
-    than ``THREADS_PER_SM`` threads per SM: one wave, walked by a
-    grid-stride loop. A function of the shape alone; 0 when there is
-    nothing to do."""
+    case: a thread per entry (at D=128 a warp takes 32 entries). The grid
+    covers that work and holds no more than ``THREADS_PER_SM`` threads per
+    SM: one wave, walked by a grid-stride loop. A function of the shape
+    alone; 0 when there is nothing to do."""
     if N <= 0 or D <= 0:
         return 0
     work = N * VEC_LANES if route == "vector" and D == 16 else N
@@ -81,6 +83,11 @@ def _launch_args(params: torch.Tensor, vals: torch.Tensor, N: int,
     route = update_route(D, params, vals, *pools)
     return (int(route == "vector"),
             update_plan(N, D, _sm_count(params.device.index), route))
+
+
+def _count_d128(D: int, vec: int) -> None:
+    if vec and D == 128:
+        cuda_lib.LAUNCHES["row_update_d128"] += 1
 
 
 def _live(params: torch.Tensor, rows: torch.Tensor,
@@ -152,6 +159,7 @@ def adagrad_rows_cuda(params, acc, rows, vals, *, lr: float, eps: float):
         torch.cuda.current_stream(params.device).cuda_stream)
     cuda_lib.check(status, "adagrad_row_update")
     cuda_lib.LAUNCHES["adagrad_row_update"] += 1
+    _count_d128(D, launch[0])
 
 
 def adagrad_row_update(params: torch.Tensor, acc: torch.Tensor,
@@ -228,6 +236,7 @@ def adam_rows_cuda(params, m, v, rows, vals, bias, *, lr, b1, b2, eps, wd):
         torch.cuda.current_stream(params.device).cuda_stream)
     cuda_lib.check(status, "adam_row_update")
     cuda_lib.LAUNCHES["adam_row_update"] += 1
+    _count_d128(D, launch[0])
 
 
 def adam_bias(count, b1: float, b2: float, device) -> torch.Tensor:

@@ -270,7 +270,7 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
           f"({'full' if args.full else 'reduced'}) device={device}")
 
     ckpt = FlashCheckpoint(args.ckpt_dir)
-    remapper = replan.EmbeddingRemapper(cfg.table_rows)
+    remapper = replan.EmbeddingRemapper(cfg.table_rows, cfg.bag_sizes)
     table_hot = None                             # None = cfg default plan
     vocab_ranges = None                          # None = uniform striping
     layout = None                                # None = flat pooled store
@@ -309,8 +309,9 @@ def train_dlrm(args, *, state: Optional[Dict[str, Any]] = None) -> TrainRun:
         cfg.table_rows, n_ps=args.n_ps, hot_budget=cfg.hot_rows_k,
         trigger=args.imbalance_threshold,
         cooldown=max(args.replan_every, 1),
-        min_lookups=4 * cfg.batch_size * cfg.n_tables * cfg.multi_hot,
-        initial_ranges=vocab_ranges, initial_hot=table_hot)
+        min_lookups=4 * cfg.batch_size * cfg.lookups_per_sample,
+        initial_ranges=vocab_ranges, initial_hot=table_hot,
+        bag_sizes=cfg.bag_sizes)
     svc, loader = data_loader(args.steps, cfg.batch_size,
                               lambda idx: criteo_batch(cfg, DATA_SEED, idx))
 

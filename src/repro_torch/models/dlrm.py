@@ -1,4 +1,5 @@
-"""The paper's DLRM workloads: Wide&Deep (Model-X), xDeepFM (Model-Y), DCN (Model-Z).
+"""The paper's DLRM workloads: Wide&Deep (Model-X), xDeepFM (Model-Y), DCN
+(Model-Z), and DLRM-DCNv2.
 
 Port of ``repro/models/dlrm.py``. Sparse categorical features -> one pooled
 embedding store for all tables -> one fused embedding-bag call (plus one
@@ -10,6 +11,14 @@ paths of the reference's parameter tree: ``tables``, ``wide``,
 ``cross_b.b0``, ``cin.w0`` … ``cin.w_out``. Weight matrices keep the
 reference's ``(in, out)`` layout. Under a ``PaddedLayout`` the pooled
 stores are ``(n_ps, max_range, D)`` padded arrays, as in the reference.
+
+DLRM-DCNv2 (the port's own) adds ``bot.w{i}``/``bot.b{i}`` (the bottom
+MLP over the dense features) and, per cross layer ``l``, ``cross.v{l}``
+``(d_in, rank)``, ``cross.w{l}`` ``(rank, d_in)`` and ``cross_b.b{l}``
+``(d_in,)``; ``mlp.*`` is its over arch. Its cross network,
+``x_{l+1} = x0 * ((x_l V_l) W_l + b_l) + x_l``, runs as one autograd
+Function whose forward and backward each record the span
+``train_step.cross``.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
     dev = generator.device
     params: Params = {
         "tables": dense_init(generator, (cfg.total_embedding_rows, D), D)}
-    d_in = cfg.n_dense + cfg.n_tables * D
+    d_in = cfg.interaction_dim
     prev = d_in
     for li, h in enumerate(cfg.mlp_dims):
         params[f"mlp.w{li}"] = dense_init(generator, (prev, h), prev)
@@ -53,6 +62,17 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
         for li in range(cfg.cross_layers):
             params[f"cross.w{li}"] = dense_init(generator, (d_in,), d_in)
         for li in range(cfg.cross_layers):
+            params[f"cross_b.b{li}"] = torch.zeros((d_in,), device=dev)
+    if cfg.kind == "dcnv2":
+        prev = cfg.n_dense
+        for li, h in enumerate(cfg.bottom_mlp_dims):
+            params[f"bot.w{li}"] = dense_init(generator, (prev, h), prev)
+            params[f"bot.b{li}"] = torch.zeros((h,), device=dev)
+            prev = h
+        r = cfg.cross_low_rank
+        for li in range(cfg.cross_layers):
+            params[f"cross.v{li}"] = dense_init(generator, (d_in, r), d_in)
+            params[f"cross.w{li}"] = dense_init(generator, (r, d_in), r)
             params[f"cross_b.b{li}"] = torch.zeros((d_in,), device=dev)
     if cfg.kind == "xdeepfm":
         prev_maps = cfg.n_tables
@@ -128,12 +148,80 @@ def _deep_mlp(params, x, cfg: DLRMConfig):
     return (h @ params["mlp.w_out"] + params["mlp.b_out"])[:, 0]
 
 
+class _LowRankCross(torch.autograd.Function):
+    """DCNv2's low-rank cross network: ``x_{l+1} = x0 * (x_l V_l W_l + b_l)
+    + x_l`` for every layer, from ``x0`` (B, d_in); weights ``(in, out)``.
+
+    One Function so that its forward and its backward each run under the
+    span ``train_step.cross`` (the backward in autograd's device thread,
+    inside the step's ``train_step.forward_backward``). Per layer the
+    forward is two GEMMs (the second with the bias, ``addmm``) and one
+    ``addcmul``; the backward three GEMMs, an ``addmm`` into the cotangent
+    of ``x_l``, two elementwise products and a column sum. It saves each
+    layer's ``x_l``, ``x_l V_l`` and ``x_l V_l W_l + b_l``.
+    """
+
+    @staticmethod
+    def forward(ctx, x0, *weights):
+        n = len(weights) // 3
+        vs, ws, bs = weights[:n], weights[n:2 * n], weights[2 * n:]
+        with torch.profiler.record_function("train_step.cross"):
+            saved = []
+            x = x0
+            for v, w, b in zip(vs, ws, bs):
+                u = x @ v
+                y = torch.addmm(b, u, w)
+                saved += [x, u, y]
+                x = torch.addcmul(x, x0, y)
+        ctx.save_for_backward(x0, *weights, *saved)
+        ctx.n = n
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n
+        x0, *rest = ctx.saved_tensors
+        vs, ws = rest[:n], rest[n:2 * n]
+        saved = rest[3 * n:]
+        with torch.profiler.record_function("train_step.cross"):
+            g_v, g_w, g_b = [None] * n, [None] * n, [None] * n
+            g_x0 = torch.zeros_like(x0)
+            for li in reversed(range(n)):
+                x, u, y = saved[3 * li:3 * li + 3]
+                g_y = g * x0
+                g_x0.addcmul_(g, y)
+                g_b[li] = g_y.sum(dim=0)
+                g_w[li] = u.t() @ g_y
+                g_u = g_y @ ws[li].t()
+                g_v[li] = x.t() @ g_u
+                g = torch.addmm(g, g_u, vs[li].t())
+            g_x0 += g
+        return (g_x0, *g_v, *g_w, *g_b)
+
+
+def low_rank_cross(params, x0: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
+    """DCNv2's cross network over ``x0`` (B, d_in): ``_LowRankCross``."""
+    n = range(cfg.cross_layers)
+    return _LowRankCross.apply(
+        x0, *(params[f"cross.v{li}"] for li in n),
+        *(params[f"cross.w{li}"] for li in n),
+        *(params[f"cross_b.b{li}"] for li in n))
+
+
 def dlrm_forward_from_embeddings(params: Mapping[str, torch.Tensor], batch,
                                  embs: Mapping[str, torch.Tensor],
                                  cfg: DLRMConfig) -> torch.Tensor:
     """The dense interaction network given the pooled-store lookups."""
     emb = constrain(embs["deep"], ("batch", None, None))     # (B, m, D)
     B = emb.shape[0]
+    if cfg.kind == "dcnv2":
+        h = batch["dense"]
+        for li in range(len(cfg.bottom_mlp_dims)):
+            h = torch.relu(torch.addmm(params[f"bot.b{li}"], h,
+                                       params[f"bot.w{li}"]))
+        x0 = torch.cat([h, emb.reshape(B, -1)], dim=-1)
+        return _deep_mlp(params, low_rank_cross(params, x0, cfg), cfg)
+
     x0 = torch.cat([batch["dense"], emb.reshape(B, -1)], dim=-1)
 
     if cfg.kind == "wide_deep":
@@ -164,7 +252,8 @@ def dlrm_forward_from_embeddings(params: Mapping[str, torch.Tensor], batch,
 
 
 def dlrm_forward(params, batch, cfg: DLRMConfig, plan) -> torch.Tensor:
-    """batch: {dense (B, n_dense) f32, sparse (B, m, hot) int} -> logit (B,)."""
+    """batch: {dense (B, n_dense) f32, sparse (B, m, hot) int, or (B,
+    sum(multi_hot)) for ragged bags} -> logit (B,)."""
     embs = dlrm_embeddings(params, batch, cfg, plan)
     return dlrm_forward_from_embeddings(params, batch, embs, cfg)
 

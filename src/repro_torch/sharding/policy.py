@@ -262,12 +262,17 @@ class EmbeddingPlan:
       layout:        optional ``PaddedLayout`` of the pool.
       sparse_update: run the fused sparse backward + row-wise optimizer
                      update in the training step.
+      bag_sizes:     per-table lookups of ragged bags: the indices are then
+                     sample-major ``(B, sum(bag_sizes))``, bag ``(b, t)`` at
+                     ``b * sum + sum(bag_sizes[:t])``; ``None`` means
+                     ``(B, T, H)`` indices, ``H`` lookups in every bag.
     """
     offsets: Optional[Tuple[int, ...]] = None
     combiner: str = "sum"
     table_hot: Optional[Tuple[int, ...]] = None
     layout: Optional[PaddedLayout] = None
     sparse_update: bool = False
+    bag_sizes: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self) -> None:
         if self.combiner not in ("sum", "mean", "max"):
@@ -278,6 +283,9 @@ class EmbeddingPlan:
         if self.table_hot is not None:
             object.__setattr__(
                 self, "table_hot", tuple(int(k) for k in self.table_hot))
+        if self.bag_sizes is not None:
+            object.__setattr__(
+                self, "bag_sizes", tuple(int(h) for h in self.bag_sizes))
 
     def with_combiner(self, combiner: str) -> "EmbeddingPlan":
         """Same plan, different bag pooling (the wide tower's sum view)."""

@@ -36,7 +36,8 @@ import torch
 from repro_torch.configs.dlrm_models import DLRMConfig
 from repro_torch.core.flash_checkpoint import FlashCheckpoint, LeafSpec, keystr
 from repro_torch.core.sharding_service import ReplanDecision
-from repro_torch.kernels.fused_embedding import table_offsets
+from repro_torch.kernels.fused_embedding import (column_values, lookup_tables,
+                                                table_offsets)
 from repro_torch.sharding.policy import (EmbeddingPlan, PaddedLayout,
                                          ShardingPolicy, make_dlrm_policy,
                                          padded_layout_for_ranges,
@@ -59,8 +60,9 @@ class EmbeddingRemapper:
     input pipeline; it never touches the train step.
     """
 
-    def __init__(self, table_rows):
+    def __init__(self, table_rows, bag_sizes=None):
         self.table_rows = tuple(int(r) for r in table_rows)
+        self.bag_sizes = bag_sizes      # per-table lookups of ragged batches
         self.offsets = np.asarray(table_offsets(self.table_rows), np.int64)
         self.total_rows = int(sum(self.table_rows))
         # raw global row -> current layout global row (identity before any plan)
@@ -74,7 +76,8 @@ class EmbeddingRemapper:
         self.n_plans += 1
 
     def remap(self, sparse: np.ndarray) -> np.ndarray:
-        """(B, T, H) raw per-table-local ids → current-layout local ids.
+        """(B, T, H) raw per-table-local ids (or ragged (B, sum(bag_sizes)))
+        → current-layout local ids.
 
         Permutations never cross table boundaries, so the result is again a
         valid per-table-local id tensor (same dtype as the input).
@@ -82,16 +85,19 @@ class EmbeddingRemapper:
         offset shift they would index a neighbouring table's rows.
         """
         sparse = np.asarray(sparse)
-        rows = np.asarray(self.table_rows, np.int64)
-        bad = (sparse < 0) | (sparse.astype(np.int64) >= rows[None, :, None])
+        rows = column_values(self.table_rows, sparse.ndim, self.bag_sizes)
+        offs = column_values(self.offsets, sparse.ndim, self.bag_sizes)
+        bad = (sparse < 0) | (sparse.astype(np.int64) >= rows)
         if bad.any():
-            b, t, h = (int(i[0]) for i in np.nonzero(bad))
+            at = tuple(int(i[0]) for i in np.nonzero(bad))
+            t = at[1] if sparse.ndim == 3 else lookup_tables(
+                self.bag_sizes)[at[1]]
             raise ValueError(
-                f"sparse id {int(sparse[b, t, h])} out of range for table "
-                f"{t} (rows={int(rows[t])}): raw ids must lie in "
-                f"[0, {int(rows[t])}) — refusing to index garbage rows")
-        g = sparse.astype(np.int64) + self.offsets[None, :, None]
-        return (self.map[g] - self.offsets[None, :, None]).astype(sparse.dtype)
+                f"sparse id {int(sparse[at])} out of range for table "
+                f"{t} (rows={self.table_rows[t]}): raw ids must lie in "
+                f"[0, {self.table_rows[t]}) — refusing to index garbage rows")
+        g = sparse.astype(np.int64) + offs
+        return (self.map[g] - offs).astype(sparse.dtype)
 
     def remap_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Copy of a criteo-style batch dict with its "sparse" ids remapped."""
@@ -299,7 +305,7 @@ def restore_with_layout(cfg: DLRMConfig, optimizer: Optimizer,
     }
     blob, restored_step = ckpt.restore(like, step,
                                        optional_leaves=(PADDED_N_PS_KEY,))
-    remapper = EmbeddingRemapper(cfg.table_rows)
+    remapper = EmbeddingRemapper(cfg.table_rows, cfg.bag_sizes)
     remapper.map = np.array(blob["layout"], np.int64)
     hot = np.asarray(blob["table_hot"])
     table_hot = None if (hot < 0).any() else tuple(int(k) for k in hot)

@@ -145,7 +145,8 @@ class DLRMJob:
         self.sparse_update = bool(sparse_update)
         self.table_hot: Optional[Any] = None     # measured cache plan rows
         self.vocab_ranges: Optional[Any] = None  # applied placement ranges
-        self.remapper = replan.EmbeddingRemapper(cfg.table_rows)
+        self.remapper = replan.EmbeddingRemapper(cfg.table_rows,
+                                                 cfg.bag_sizes)
         self.state: Optional[Dict[str, Any]] = None
         self.step_fn: Optional[Callable[..., Any]] = None
         self.global_step = 0

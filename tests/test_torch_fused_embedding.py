@@ -192,8 +192,12 @@ def test_bag_route_and_plan_follow_the_shape_alone():
     route = tfe.bag_route
     assert route(16, 4, buf(64), buf(32)) == "vector"
     assert route(1, 4, buf(64), buf(32), buf(8)) == "wide"
-    for D, H in ((16, 2), (16, 5), (1, 2), (4, 4), (6, 4), (8, 2), (32, 4)):
+    for D, H in ((16, 2), (16, 5), (1, 2), (4, 4), (6, 4), (8, 2), (32, 4),
+                 (16, 0), (1, 0)):
         assert route(D, H, buf(64), buf(32)) == "generic"
+    for H in (4, 1, 100, 0):                  # 0: ragged bags
+        assert route(128, H, buf(512), buf(32)) == "d128"
+        assert route(128, H, buf(512, 1), buf(32)) == "generic"
     for D in (16, 1):
         for off in (1, 2, 3):
             assert route(D, 4, buf(64), buf(32, off)) == "generic"
@@ -212,11 +216,13 @@ def test_bag_route_and_plan_follow_the_shape_alone():
             assert blocks * T[r] >= bags * L[r] > (blocks - 1) * T[r]
     cu = (Path(tfe.__file__).parents[1] / "csrc" / "fused_embedding.cu"
           ).read_text()
+    assert plan(n, "d128") == 32 * n // 256
     for r, name in (("vector", "kVecThreads"), ("wide", "kWideThreads"),
-                    ("generic", "kAnyThreads")):
+                    ("generic", "kAnyThreads"), ("d128", "kD128Threads")):
         assert f"constexpr int {name} = {T[r]};" in cu
     for r, code in tfe._ROUTE_CODE.items():
-        name = {"generic": "kGeneric", "vector": "kVector", "wide": "kWide"}
+        name = {"generic": "kGeneric", "vector": "kVector", "wide": "kWide",
+                "d128": "kD128"}
         assert f"constexpr int {name[r]} = {code};" in cu
 
 
