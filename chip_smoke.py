@@ -59,7 +59,17 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    adagrad run's store, timed as in phase 5 beside their plain versions,
    equal to them bit for bit: K1 (and ``F.embedding_bag`` with per-bag
    offsets), SS on the ragged route (and the path it replaced), and K2
-   and K3 at D=128 (checked on copies of the touched rows).
+   and K3 at D=128 (checked on copies of the touched rows). The adagrad
+   run's norm and dense update launch once a step each.
+6 (c). the optimizer layer's multi-tensor kernels (MT, ``csrc/multi_tensor.cu``)
+   at that cell's shapes: the dense adagrad update over its 25 dense leaves
+   (gradients drawn from a seed), equal bit for bit to the op-by-op path it
+   replaced, and the squared global norm over those gradients and the
+   batch's deduped row gradients (1,753,088 entries, the padding tail
+   included), within MT_NORM_REL of a float64 sum. Each is timed as in
+   phase 5, in turns with the op-by-op path (plain) and ``torch._foreach_*``
+   of the same expressions (library), twice, beside its bound (bytes), with
+   the host's time to enqueue one call.
 
 The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
 heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
@@ -205,24 +215,25 @@ f32 caches):
     peak memory.
 
 LM training, run last (adamw at LM_LR, remat; attention trains on the
-chunked route of ``models/attention.py``, so no kernel launches in a train
-step):
+chunked route of ``models/attention.py``, so a train step launches no
+kernel but the optimizer's global norm, ``grad_sq_norm``):
 
 16. (a) ``repro_torch.launch.train --arch llama3.2-3b --full --steps 10
     --batch 8 --seq 64`` (28 layers, 3.2 B params, bf16): losses finite,
     the mean of the last 3 below the first, 10 steps, exactly-once
-    coverage of 80 samples, no kernel launched, peak memory under 80 GB;
+    coverage of 80 samples, no kernel but the norm launched, peak memory
+    under 80 GB;
     ms per step (median of steps 3-10, synchronised) and tokens/s. (c)
     the eval step on the trained state: K4 exactly once per layer (28),
     its loss within LM_EVAL_REL of the training route's on the same
     params and batch. A ``torch.profiler`` split of one step: the whole
     step, its forward + backward and its optimizer in windows of their
     own (device time, host gaps, idle share). (b) two steps at B=1,
-    S=2048: ms and peak memory. (d) three launcher steps of
+    S=2048: ms and peak memory, the norm the only kernel. (d) three launcher steps of
     granite-moe-1b-a400m, mamba2-2.7b, recurrentgemma-2b and
     whisper-medium at full width and depth (B=8, S=64; whisper's 1,500
-    zero frames): losses finite, no kernel launched, ms per step and peak
-    memory. (e) card against CPU, f32, full width cut to 2 layers, B=2,
+    zero frames): losses finite, no kernel but the norm launched, ms per
+    step and peak memory. (e) card against CPU, f32, full width cut to 2 layers, B=2,
     S=64, TF32 off: the loss within LM_CARD_CPU_LOSS_REL, every gradient
     leaf within LM_CARD_CPU_GRAD_REL, the params after one adamw step
     within 2 lr element by element and the loss after it within
@@ -336,7 +347,7 @@ def ulp_distance(a, b) -> int:
     return int((line(a) - line(b)).abs().max())
 
 
-def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
+def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3, spin=SPIN_CYCLES):
     """Median device time of ``fn`` in ms over ``iters`` launches, each
     timed alone with CUDA events after a write that evicts the L2.
 
@@ -350,7 +361,7 @@ def time_ms(fn, flush, iters=TIMING_ITERS, warmup=3):
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()
@@ -410,6 +421,9 @@ PTXAS_REPORTED = {
         "K5 split D<=256 (every q and cache dtype)",
     "decode_combine_kernelI13__nv_bfloat16E": "K5 combine (bf16 q)",
     "bag_d128_kernelILi0E": "K1 D=128 warp (sum)",
+    "grad_sq_norm_kernel": "MT grad_sq_norm",
+    "grad_sq_norm_finish": "MT grad_sq_norm finish",
+    "dense_adagrad_kernel": "MT dense_adagrad",
     **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
        for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
        for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"),
@@ -453,7 +467,7 @@ def phase_build(report):
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
         if name.startswith(("K1", "K2", "K3", "K4", "K5 split D<=256",
-                            "K5 split D<=128, G>8", "SS")):
+                            "K5 split D<=128, G>8", "SS", "MT")):
             spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
                                 r"spill loads", line)
             check(spills and all(a == b == "0" for a, b in spills),
@@ -1120,6 +1134,132 @@ def _time_rows_d128(kernel, params, pools, rows, vals, flush):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+MT_NORM_REL = 1e-6            # MT's norm vs a float64 sum: its f32 squares
+                              # added in double, rounded once
+MT_SPIN_CYCLES = 1_000_000_000  # ~0.5 s: the op-by-op paths enqueue ~180
+                                # launches a call
+MT_HOST_ITERS = 20
+
+
+def _host_ms(fn):
+    """Median host time to enqueue one call of ``fn`` on an idle card."""
+    import torch
+    times = []
+    for _ in range(MT_HOST_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def _turns(fns, flush, rounds=2):
+    """Each of ``fns`` (kernel, plain, library) timed as in phase 5 (device
+    ms, a longer spin ahead of the op-by-op paths' launches) in turns,
+    ``rounds`` times, and its host enqueue ms."""
+    import torch
+    out = {k: [] for k in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(time_ms(fn, flush, spin=MT_SPIN_CYCLES))
+            torch.cuda.empty_cache()
+    return out, {name: _host_ms(fn) for name, fn in fns.items()}
+
+
+def _time_multi_tensor(state, rows, vals, R, flush, counts, kernels):
+    """Phase 6 (c): the multi-tensor kernels at the DLRM-DCNv2 cell's dense
+    tree (the params and accumulators of ``state`` but the store, gradients
+    drawn from a seed) and the deduped row gradients of one of its batches
+    (``rows``, ``vals``, padding included; the store's ``R`` rows). The
+    dense adagrad update, bit for bit against the op-by-op path; the
+    squared norm of the gradients and the sparse leaf, within MT_NORM_REL
+    of a float64 sum. Both timed in turns with the op-by-op path and
+    ``torch._foreach_*``; two entries appended to ``kernels``."""
+    import torch
+    from repro_torch.kernels import multi_tensor as mt
+    from repro_torch.train import optim
+    keys = sorted(k for k in state["params"] if k != "tables")
+    ps = [state["params"][k] for k in keys]
+    accs = [state["opt"]["acc"][k] for k in keys]
+    gen = torch.Generator(device=ps[0].device).manual_seed(35)
+    gs = [torch.randn(p.shape, generator=gen, device=p.device) * 1e-2
+          for p in ps]
+    lr, eps = 3e-3, 1e-10
+    n = sum(p.numel() for p in ps)
+    n_live = int((rows < R).sum())
+    D = vals.shape[1]
+
+    outs, new_accs = mt.dense_adagrad(gs, accs, ps, lr=lr, eps=eps)
+    for g, a, p, o, na in zip(gs, accs, ps, outs, new_accs):
+        want_o, want_a = mt.adagrad_leaf_plain(g, a, p, lr=lr, eps=eps)
+        check(torch.equal(o, want_o) and torch.equal(na, want_a),
+              "MT dense_adagrad differs from the op-by-op path")
+    del outs, new_accs
+
+    def foreach_adagrad():
+        a = torch._foreach_add(accs, torch._foreach_mul(gs, gs))
+        den = torch._foreach_sqrt(a)
+        torch._foreach_add_(den, eps)
+        u = torch._foreach_div(torch._foreach_mul(gs, -lr), den)
+        return torch._foreach_add(ps, u), a
+
+    lib_p, lib_a = foreach_adagrad()
+    want = [mt.adagrad_leaf_plain(g, a, p, lr=lr, eps=eps)
+            for g, a, p in zip(gs, accs, ps)]
+    lib_equal = all(torch.equal(x, w[0]) and torch.equal(y, w[1])
+                    for x, y, w in zip(lib_p, lib_a, want))
+    del lib_p, lib_a, want
+    upd_ms, upd_host = _turns({
+        "ms": lambda: mt.dense_adagrad(gs, accs, ps, lr=lr, eps=eps),
+        "plain_ms": lambda: [mt.adagrad_leaf_plain(g, a, p, lr=lr, eps=eps)
+                             for g, a, p in zip(gs, accs, ps)],
+        "library_ms": foreach_adagrad}, flush)
+    b_upd, by_upd = bound_ms(n * 20, n * 6)
+
+    leaves = [*gs, optim.SparseRowGrad(rows, vals)]
+    sq = float(mt.grad_sq_norm(leaves))
+    want64 = sum(float(torch.sum(mt._vals(x).double() ** 2)) for x in leaves)
+    rel = abs(sq - want64) / want64
+    check(rel <= MT_NORM_REL, f"MT grad_sq_norm {sq!r} vs float64 "
+          f"{want64!r}: rel {rel:.3g} > {MT_NORM_REL}")
+    plain_sq = float(mt.grad_sq_norm_plain(leaves))
+    check(torch.equal(mt.grad_sq_norm(leaves), mt.grad_sq_norm(leaves)),
+          "MT grad_sq_norm: two calls differ")
+    flat = [*gs, vals]
+    norm_ms, norm_host = _turns({
+        "ms": lambda: mt.grad_sq_norm(leaves),
+        "plain_ms": lambda: mt.grad_sq_norm_plain(leaves),
+        "library_ms": lambda: torch.sum(torch.square(torch.stack(
+            torch._foreach_norm(flat))))}, flush)
+    b_norm, by_norm = bound_ms(n * 4 + n_live * D * 4, n * 2 + n_live * D * 2)
+
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/multi_tensor.cu",
+              "replaces": None}
+    upd = {"leaves": len(ps), "params": n, "bit_for_bit": True,
+           "library_bit_for_bit": lib_equal, **upd_ms,
+           **{f"host_{k}": v for k, v in upd_host.items()},
+           "bound_ms": b_upd, "bound_by": by_upd,
+           "launches": counts["dense_adagrad"]}
+    norm = {"leaves": len(leaves), "entries": rows.shape[0],
+            "live_rows": n_live, "D": D, "rel_vs_f64": rel,
+            "plain_rel_vs_f64": abs(plain_sq - want64) / want64, **norm_ms,
+            **{f"host_{k}": v for k, v in norm_host.items()},
+            "bound_ms": b_norm, "bound_by": by_norm,
+            "launches": counts["grad_sq_norm"]}
+    kernels.append({"name": "MT dense_adagrad", **common, **upd,
+                    "at": f"the DCNv2 cell's {len(ps)} dense leaves"})
+    kernels.append({"name": "MT grad_sq_norm", **common, **norm,
+                    "at": f"the DCNv2 cell's dense gradients + {n_live} of "
+                          f"{rows.shape[0]} sparse entries"})
+    for name, t in (("dense_adagrad", upd), ("grad_sq_norm", norm)):
+        log(f"  MT {name}: {t['ms']} ms, plain {t['plain_ms']} ms, library "
+            f"{t['library_ms']} ms (in turns), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}); host {t['host_ms']:.3f} ms a call, plain "
+            f"{t['host_plain_ms']:.3f}, library {t['host_library_ms']:.3f}")
+    return {"dense_adagrad": upd, "grad_sq_norm": norm}
+
+
 def phase_dcnv2(report, dev, kernels):
     """Phase 6 (b): the kernels of the DLRM-DCNv2 benchmark cell at its
     shapes. ``DCNV2_STEPS`` fused adagrad steps of the cell's program, where
@@ -1149,11 +1289,11 @@ def phase_dcnv2(report, dev, kernels):
     per_step = {k: c_main[k] / DCNV2_STEPS for k in (
         "fused_embedding_bag", "embedding_bag_d128", "embedding_bag_ragged",
         "segment_sum_ragged", "segment_sum_bags", "adagrad_row_update",
-        "row_update_d128")}
+        "row_update_d128", "grad_sq_norm", "dense_adagrad")}
     want = {"fused_embedding_bag": 1, "embedding_bag_d128": 1,
             "embedding_bag_ragged": 0, "segment_sum_ragged": 1,
             "segment_sum_bags": 0, "adagrad_row_update": 1,
-            "row_update_d128": 1}
+            "row_update_d128": 1, "grad_sq_norm": 1, "dense_adagrad": 1}
     check(per_step == want, f"DCNv2 launches a step {per_step}, not {want}")
     cfg, plan, state = run["cfg"], run["plan"], run["state"]
     sizes = cfg.bag_sizes
@@ -1170,6 +1310,8 @@ def phase_dcnv2(report, dev, kernels):
                          device=dev)
     rows, vals = fe.dedupe_bags(store_idx, g_bags, 0, pool.shape[0], sizes)
     del g_bags, store_idx
+    mt = _time_multi_tensor(state, rows, vals, pool.shape[0], flush, c_main,
+                            kernels)
     acc = _pool2d(state["opt"]["acc"]["tables"], plan.layout)
     del state
     k23 = {"adagrad_row_update": _time_rows_d128(
@@ -1195,7 +1337,7 @@ def phase_dcnv2(report, dev, kernels):
             entry["at_dcnv2_cell"] = {"at": at, **extra[key]}
     report["dcnv2"] = {"at": at, "launches": c_main,
                        "launches_adam": c_adam, "k1": k1, "k2_k3": k23,
-                       "segment_sum": ss}
+                       "segment_sum": ss, "multi_tensor": mt}
     log(f"  K1 D=128: {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
         f"library {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
         f"({k1['bound_by']}; {k1['cold_rows']} cold rows)")
@@ -3111,8 +3253,10 @@ def _lm_train_full(report, dev):
     cfg, api, opt = run.cfg, run.api, run.opt
     B, S = 8, 64
     losses = run.losses
-    check(sum(counts.values()) == 0, f"LM training launched kernels: "
-          f"{counts} (attention trains on the chunked route)")
+    check(counts["grad_sq_norm"] > 0 and sum(counts.values()) ==
+          counts["grad_sq_norm"], f"LM training launched kernels: {counts} "
+          "(attention trains on the chunked route; only the optimizer's "
+          "norm launches)")
     check(len(losses) == LM_TRAIN_STEPS and run.state["step"] ==
           LM_TRAIN_STEPS, f"{len(losses)} steps, state at step "
           f"{run.state['step']}, want {LM_TRAIN_STEPS}")
@@ -3209,8 +3353,11 @@ def _lm_train_full(report, dev):
         ms.append(sec * 1e3)
         check(math.isfinite(float(m["loss"])), "non-finite loss at S=2048")
     long_peak = torch.cuda.max_memory_allocated()
-    check(sum(cuda_lib.LAUNCHES.values()) == 0, "a kernel launched in the "
-          f"S=2048 train step: {dict(cuda_lib.LAUNCHES)}")
+    launches = dict(cuda_lib.LAUNCHES)
+    # the global norm, the step's and adamw's clip, twice a step
+    check(launches.pop("grad_sq_norm") == 4 and not any(launches.values()),
+          f"S=2048 train steps launched {dict(cuda_lib.LAUNCHES)}, want the "
+          "norm alone, twice a step")
     check(long_peak < LM_PEAK_BYTES, f"S=2048: peak {long_peak / 1e9:.2f} GB")
     info["long"] = {"batch": 1, "seq": LM_LONG_SEQ, "step_ms": ms,
                     "tokens_per_s": LM_LONG_SEQ / (ms[-1] / 1e3),
@@ -3234,8 +3381,8 @@ def _lm_train_families(dev):
                 "--lr", str(LM_LR), "--steps", str(LM_FAMILY_STEPS),
                 "--device", "cuda"]
         run, counts = _driven(argv, ())
-        check(sum(counts.values()) == 0, f"{arch} training launched "
-              f"{counts}")
+        check(counts["grad_sq_norm"] > 0 and sum(counts.values()) ==
+              counts["grad_sq_norm"], f"{arch} training launched {counts}")
         check(len(run.losses) == LM_FAMILY_STEPS, f"{arch}: "
               f"{len(run.losses)} steps")
         ms = [s * 1e3 for s in run.step_seconds]

@@ -16,9 +16,11 @@ to ``fused_embedding_bag`` a launch and one more under its D=128 or
 ragged route. ``ROW_COUNTS`` counts the
 rows of the sparse backward and the row updates, on every device: the
 distinct rows ``fused_embedding.dedupe_rows`` finds, and the entries the
-row updates (K2/K3 or their plain versions) walk, padding included. Both
-add host ints the callers already hold, so counting costs no device op
-and no sync. ``reset_launches()`` sets every count of both to 0.
+row updates (K2/K3 or their plain versions) walk, padding included.
+``LEAF_COUNTS`` counts the floating dense leaves the dense adagrad update
+took, on every device, and how many of them its multi-tensor kernel took.
+All three add host ints the callers already hold, so counting costs no
+device op and no sync. ``reset_launches()`` sets every count to 0.
 """
 from __future__ import annotations
 
@@ -54,10 +56,16 @@ LAUNCHES: Dict[str, int] = {
     "embedding_bag_d128": 0,      # K1's D=128 route (a warp per bag)
     "embedding_bag_ragged": 0,    # K1's generic route on ragged bags
     "row_update_d128": 0,         # K2/K3's D=128 route (a warp per row)
+    "grad_sq_norm": 0,            # the optimizer's global norm, a call
+    "dense_adagrad": 0,           # the dense adagrad update, a call
 }
 ROW_COUNTS: Dict[str, int] = {
     "rows_deduped": 0,            # fused_embedding.dedupe_rows
     "row_update_entries": 0,      # fused_update.{adagrad,adam}_row_update
+}
+LEAF_COUNTS: Dict[str, int] = {
+    "dense_leaves": 0,            # multi_tensor.dense_adagrad's leaves
+    "dense_leaves_fused": 0,      # those its kernel updated
 }
 
 _VP = ctypes.c_void_p
@@ -84,14 +92,16 @@ _SIGNATURES = {
          _I, _I, _F, _F, _I, _I, _VP],
     "repro_segment_sum_f32":
         [_VP, _VP, _VP, _LL, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
+    "repro_grad_sq_norm": [_VP, _I, _VP, _VP, _I, _VP],
+    "repro_dense_adagrad": [_VP, _I, _F, _F, _VP, _I, _I, _VP],
 }
 
 _loaded: List[ctypes.CDLL] = []
 
 
 def reset_launches() -> None:
-    """Set every launch count and row count to 0."""
-    for counts in (LAUNCHES, ROW_COUNTS):
+    """Set every launch, row and leaf count to 0."""
+    for counts in (LAUNCHES, ROW_COUNTS, LEAF_COUNTS):
         for name in counts:
             counts[name] = 0
 

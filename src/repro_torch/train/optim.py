@@ -10,6 +10,11 @@ correction from ``count``, with weight decay). Leaves are visited in the
 reference's ``jax.tree.leaves`` order: dict keys sorted, lists in order; a
 ``SparseRowGrad`` leaf yields rows, then vals.
 
+The global norm and adagrad's dense update go through
+``kernels/multi_tensor.py``: on CUDA leaves one multi-tensor kernel each
+over the whole tree (the norm reads a ``SparseRowGrad``'s live rows only),
+on CPU leaves the plain expressions, op by op.
+
 Adam's ``apply`` updates and applies one leaf at a time: it clips that
 leaf, computes its ``m``, ``v``, bias-corrected moments and update, adds
 the update to the parameter and drops the temporaries before the next
@@ -25,6 +30,7 @@ from typing import (Any, Callable, Iterator, Mapping, NamedTuple, Optional,
 
 import torch
 
+from repro_torch.kernels import multi_tensor
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.fused_embedding import scatter_rows
 
@@ -39,8 +45,9 @@ class Optimizer(NamedTuple):
     ``count`` are advanced by ``update``. ``clip_norm`` is this optimizer's
     default clip, applied once by the trainer over the joint tree.
     ``apply(grads, state, params, donate=False)`` returns ``(new_params,
-    new_state)`` leaf by leaf (adam); ``update_and_apply`` falls back to
-    ``update`` + ``apply_updates`` where it is None.
+    new_state)``: leaf by leaf (adam), or in one multi-tensor update
+    (adagrad); ``update_and_apply`` falls back to ``update`` +
+    ``apply_updates`` where it is None.
     """
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
@@ -52,9 +59,11 @@ class Optimizer(NamedTuple):
 class SparseRowGrad(NamedTuple):
     """COO gradient leaf of a pooled (R, D) parameter: rows + values.
 
-    ``rows`` (N,) int32 deduplicated store rows (entries equal to the pool's
-    row count are padding with zero values); ``vals`` (N, D) f32 summed
-    cotangents. Norms, clipping and compression skip the integer ``rows``.
+    ``rows`` (N,) int32 deduplicated store rows, ascending: the distinct
+    rows first, then the padding, entries equal to the pool's row count
+    with zero values (the dedupe's order, which the global norm's kernel
+    relies on to skip the padding); ``vals`` (N, D) f32 summed cotangents.
+    Norms, clipping and compression skip the integer ``rows``.
     """
     rows: torch.Tensor
     vals: torch.Tensor
@@ -159,10 +168,25 @@ def _zeros_like(params):
     return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
+def _norm_leaves(tree) -> Iterator[Any]:
+    """The floating leaves in ``tree_leaves`` order, each ``SparseRowGrad``
+    as one leaf (its ``(rows, vals)``)."""
+    if isinstance(tree, SparseRowGrad):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _norm_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _norm_leaves(v)
+    elif _inexact(tree):
+        yield tree
+
+
 def global_norm(tree) -> torch.Tensor:
-    """L2 norm over every floating leaf (integer leaves carry no gradient)."""
-    leaves = [l for l in tree_leaves(tree) if _inexact(l)]
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in leaves))
+    """L2 norm over every floating leaf (integer leaves carry no gradient),
+    ``multi_tensor.global_norm``: one kernel over the tree on CUDA."""
+    return multi_tensor.global_norm(list(_norm_leaves(tree)))
 
 
 def _clip_scale(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -274,15 +298,32 @@ def adagrad(lr: float, *, eps: float = 1e-10,
     def init(params):
         return {"acc": _zeros_like(params)}
 
-    def update(grads, state, params):
+    def run(grads, state, params, apply: bool):
+        """(updates or new params, new state) of every leaf at once
+        (``multi_tensor.dense_adagrad``), clipped by the scale of
+        ``clip_by_global_norm`` where ``clip_norm`` is set."""
+        scale = None
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
-        acc = tree_map(lambda a, g: a + torch.square(g.float()),
-                       state["acc"], grads)
-        updates = tree_map(
-            lambda g, a, p: (-lr * g.float() / (torch.sqrt(a) + eps)
-                             ).to(p.dtype), grads, acc, params)
-        return updates, {"acc": acc}
+            scale, _ = _clip_scale(grads, clip_norm)
+        gs, accs, ps = [], [], []
+
+        def collect(p, g, a):
+            gs.append(g)
+            accs.append(a)
+            ps.append(p)
+
+        tree_map(collect, params, grads, state["acc"])
+        outs, new_accs = multi_tensor.dense_adagrad(
+            gs, accs, ps, lr=lr, eps=eps, scale=scale, apply=apply)
+        out_it, acc_it = iter(outs), iter(new_accs)
+        return (tree_map(lambda _: next(out_it), params),
+                {"acc": tree_map(lambda _: next(acc_it), params)})
+
+    def update(grads, state, params):
+        return run(grads, state, params, apply=False)
+
+    def apply(grads, state, params, donate: bool = False):
+        return run(grads, state, params, apply=True)
 
     def update_rows(rows, row_grads, state, params):
         # row-wise adagrad is bit-exact vs the dense path up to FMA ULPs:
@@ -293,7 +334,7 @@ def adagrad(lr: float, *, eps: float = 1e-10,
         return new_params, {"acc": new_acc}
 
     return Optimizer(init, update, update_rows=update_rows,
-                     clip_norm=clip_norm)
+                     clip_norm=clip_norm, apply=apply)
 
 
 def sgd(lr: float, *, momentum: float = 0.0,
@@ -324,8 +365,8 @@ def apply_updates(params, updates):
 
 def update_and_apply(optimizer: Optimizer, grads, state, params, *,
                      donate: bool = False):
-    """``(new_params, new_state)``: the optimizer's leaf-by-leaf ``apply``
-    where it has one (adam), else ``update`` + ``apply_updates``.
+    """``(new_params, new_state)``: the optimizer's ``apply`` where it has
+    one (adam, adagrad), else ``update`` + ``apply_updates``.
     ``donate`` lets ``apply`` empty the leaf slots of ``grads``, ``params``
     and ``state`` as it goes; the caller must not read them afterwards."""
     if optimizer.apply is not None:

@@ -16,8 +16,8 @@ counterpart: one GPU has no mesh.
 (state, metrics)`` over the flat ``{name: tensor}`` DLRM params:
 
 * the dense step differentiates the whole loss (the embedding bag's
-  backward scatters deduped rows into a dense pool gradient) and applies
-  ``optimizer.update`` to every parameter, returning new tensors;
+  backward scatters deduped rows into a dense pool gradient) and updates
+  every parameter (``optim.update_and_apply``), returning new tensors;
 * the fused sparse step (``plan.sparse_update``) differentiates only the
   dense network at the ``dlrm_embeddings`` seam, turns each pooled store's
   bag cotangent into deduped COO row grads, and updates exactly those rows
@@ -170,9 +170,8 @@ def make_dlrm_train_step(cfg: DLRMConfig, optimizer: Optimizer,
             if grad_compress:
                 grads = optim_mod.compress_grads(grads)
             gnorm = optim_mod.global_norm(grads)
-            updates, opt_state = optimizer.update(grads, state["opt"],
-                                                  state["params"])
-            params = optim_mod.apply_updates(state["params"], updates)
+            params, opt_state = optim_mod.update_and_apply(
+                optimizer, grads, state["opt"], state["params"])
         new_state = {"params": params, "opt": opt_state,
                      "step": state["step"] + 1}
         return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
@@ -254,9 +253,8 @@ def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
                                                        sparse_keys)
             dense_only = {k: v for k, v in grads.items()
                           if k not in sparse_keys}
-            updates, new_dense_state = optimizer.update(
-                dense_only, dense_state, dense_params)
-            new_params = optim_mod.apply_updates(dense_params, updates)
+            new_params, new_dense_state = optim_mod.update_and_apply(
+                optimizer, dense_only, dense_state, dense_params)
             new_opt = dict(new_dense_state)
             for k in sparse_keys:
                 store = params[k]

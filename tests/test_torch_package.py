@@ -257,4 +257,5 @@ def test_library_path_tracks_the_sources():
     srcs = {p.name for p in cuda_lib.CSRC_DIR.glob("*.cu")}
     assert srcs == {"fused_embedding.cu", "fused_update.cu",
                     "flash_attention.cu", "flash_attention_tc.cu",
-                    "decode_attention.cu", "segment_sum.cu"}
+                    "decode_attention.cu", "segment_sum.cu",
+                    "multi_tensor.cu"}
