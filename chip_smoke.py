@@ -733,7 +733,7 @@ def phase_slice(report, dev):
 def phase_timing(report, dev, run, c_main, c_adam, errs):
     import torch
     from repro_torch.kernels import fused_embedding as fe
-    from repro_torch.models.dlrm import _pool2d
+    from repro_torch.models.dlrm import pool_rows
 
     cfg, plan = run.cfg, run.plan
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -742,10 +742,10 @@ def phase_timing(report, dev, run, c_main, c_adam, errs):
 
     # K1 on the main path: both pools, unweighted sum, 64 hot rows, padded
     params = run.state["params"]
-    k1 = {"deep": _time_k1(_pool2d(params["tables"], plan.layout), idx,
-                           plan, "vector", flush),
-          "wide": _time_k1(_pool2d(params["wide"], plan.layout), idx, plan,
-                           "wide", flush)}
+    k1 = {"deep": _time_k1(pool_rows(params["tables"]), idx, plan,
+                           "vector", flush),
+          "wide": _time_k1(pool_rows(params["wide"]), idx, plan, "wide",
+                           flush)}
     D = cfg.embed_dim
     k1d = k1["deep"]
     kernels.append({
@@ -1273,7 +1273,7 @@ def phase_dcnv2(report, dev, kernels):
     ``at_dcnv2_cell``."""
     import torch
     from repro_torch.kernels import fused_embedding as fe
-    from repro_torch.models.dlrm import _pool2d
+    from repro_torch.models.dlrm import pool_rows
     log(f"phase 6 (b) DCNv2: {DCNV2_STEPS} fused adam steps, tables cut to "
         f"{DCNV2_ADAM_ROWS:,} rows")
     c_adam = _dcnv2_run(dev, "adam", (
@@ -1300,7 +1300,7 @@ def phase_dcnv2(report, dev, kernels):
     idx = run["batch"]["sparse"]
     del run
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    pool = _pool2d(state["params"]["tables"], plan.layout)
+    pool = pool_rows(state["params"]["tables"])
     k1 = _time_k1(pool, idx, plan, "d128", flush)
     store_idx = fe.translate_rows(
         fe._flat_lookups(idx, plan.offsets, sizes), plan.layout)
@@ -1312,7 +1312,7 @@ def phase_dcnv2(report, dev, kernels):
     del g_bags, store_idx
     mt = _time_multi_tensor(state, rows, vals, pool.shape[0], flush, c_main,
                             kernels)
-    acc = _pool2d(state["opt"]["acc"]["tables"], plan.layout)
+    acc = pool_rows(state["opt"]["acc"]["tables"])
     del state
     k23 = {"adagrad_row_update": _time_rows_d128(
         "adagrad_row_update", pool, [acc], rows, vals, flush)}
@@ -1503,7 +1503,7 @@ def phase_replan(report, dev, steps_per_s_plain):
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import fused_embedding as fe
     from repro_torch.launch import train as launch
-    from repro_torch.models.dlrm import _pool2d
+    from repro_torch.models.dlrm import pool_rows
     from repro_torch.sharding import policy as pol
     from repro_torch.train import elastic, replan, trainer
 
@@ -1611,7 +1611,7 @@ def phase_replan(report, dev, steps_per_s_plain):
         # 4. K1 under the post-re-plan plan: measured cache, unequal ranges
         k1_ulp = 0
         for key in ("tables", "wide"):
-            pool = _pool2d(res.state["params"][key], res.layout)
+            pool = pool_rows(res.state["params"][key])
             for combiner in ("sum", "mean", "max"):
                 plan = res.plan.with_combiner(combiner)
                 enc, cache = fe.kernel_inputs(pool, probe_new["sparse"], plan)

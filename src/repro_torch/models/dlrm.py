@@ -23,7 +23,7 @@ Function whose forward and backward each record the span
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,9 +84,8 @@ def init_dlrm(cfg: DLRMConfig, generator: torch.Generator,
         params["cin.w_out"] = dense_init(
             generator, (sum(cfg.cin_layers),), sum(cfg.cin_layers))
     if layout is not None:
-        params["tables"] = layout.pad_rows(params["tables"])
-        if "wide" in params:
-            params["wide"] = layout.pad_rows(params["wide"])
+        for key in sparse_param_keys(cfg):
+            params[key] = layout.pad_rows(params[key])
     return params
 
 
@@ -114,31 +113,47 @@ def params_from_jax(cfg: DLRMConfig, np_tree: Mapping[str, Any],
     return out
 
 
-def _pool2d(store: torch.Tensor, layout) -> torch.Tensor:
-    """Padded (n_ps, max_range, ...) store → the engine's flattened view
-    (shares storage, so in-place row updates reach the store)."""
-    if layout is None:
-        return store
-    return store.reshape((layout.padded_rows,) + tuple(store.shape[2:]))
+class PooledStore(NamedTuple):
+    """A pooled (vocab-row) store: its param key, the key of its bags in
+    ``dlrm_embeddings``' output and their combiner (None: the plan's)."""
+    param: str
+    bag: str
+    combiner: Optional[str] = None
+
+    def bag_plan(self, plan):
+        return plan.with_combiner(self.combiner) if self.combiner else plan
+
+
+# The one table of the pooled stores, in update order: every model has the
+# deep tables, only wide_deep the wide store.
+POOLED_STORES = (PooledStore("tables", "deep"),
+                 PooledStore("wide", "wide", "sum"))
+POOLED_KEYS = frozenset(s.param for s in POOLED_STORES)
+
+
+def pooled_stores(cfg: DLRMConfig) -> Tuple[PooledStore, ...]:
+    """``cfg``'s stores, which the sparse backward and row update handle."""
+    return POOLED_STORES if cfg.kind == "wide_deep" else POOLED_STORES[:1]
 
 
 def sparse_param_keys(cfg: DLRMConfig) -> tuple:
-    """The pooled (vocab-row) parameters the fused sparse backward and the
-    row-wise optimizer update handle; everything else is dense."""
-    return ("tables", "wide") if cfg.kind == "wide_deep" else ("tables",)
+    return tuple(s.param for s in pooled_stores(cfg))
+
+
+def pool_rows(store: torch.Tensor) -> torch.Tensor:
+    """A pooled store, flat (R, D) or padded (n_ps, max_range, D), as the
+    engine's (rows, D) view, which shares its storage."""
+    return store.reshape(-1, store.shape[-1])
 
 
 def dlrm_embeddings(params: Mapping[str, torch.Tensor], batch, cfg: DLRMConfig,
                     plan) -> Dict[str, torch.Tensor]:
     """Every pooled-store lookup of one forward: ``{"deep": (B, n_tables,
     D)}`` plus ``{"wide": (B, n_tables, 1)}`` for wide_deep."""
-    embs = {"deep": ops.fused_embedding_bag(
-        _pool2d(params["tables"], plan.layout), batch["sparse"], plan=plan)}
-    if cfg.kind == "wide_deep":
-        embs["wide"] = ops.fused_embedding_bag(
-            _pool2d(params["wide"], plan.layout), batch["sparse"],
-            plan=plan.with_combiner("sum"))
-    return embs
+    return {s.bag: ops.fused_embedding_bag(pool_rows(params[s.param]),
+                                           batch["sparse"],
+                                           plan=s.bag_plan(plan))
+            for s in pooled_stores(cfg)}
 
 
 def _deep_mlp(params, x, cfg: DLRMConfig):

@@ -38,16 +38,14 @@ from repro_torch.kernels.fused_embedding import scatter_rows
 class Optimizer(NamedTuple):
     """(init, update) transform + the optional sparse row seam.
 
-    ``update_rows(rows, row_grads, state, params)`` applies this optimizer's
-    row-wise update to exactly the given rows of one pooled (R, D) parameter
-    (entries ``>= R`` are padding), in place, and returns ``(params,
-    new_leaf_state)`` with the per-leaf moment pools; shared scalars such as
-    ``count`` are advanced by ``update``. ``clip_norm`` is this optimizer's
-    default clip, applied once by the trainer over the joint tree.
-    ``apply(grads, state, params, donate=False)`` returns ``(new_params,
-    new_state)``: leaf by leaf (adam), or in one multi-tensor update
-    (adagrad); ``update_and_apply`` falls back to ``update`` +
-    ``apply_updates`` where it is None.
+    The optimizer owns its state, one form over the whole params tree, and
+    the row-wise update. ``apply(grads, state, params, donate=False)``
+    returns ``(new_params, new_state)``: leaf by leaf (adam), or in one
+    multi-tensor update (adagrad); ``update_and_apply`` falls back to
+    ``update`` + ``apply_updates`` where it is None. Only ``apply`` takes a
+    ``SparseRowGrad`` leaf: ``update_rows(rows, row_grads, state, params)``
+    updates those rows of the pooled store (flat or padded) and of its
+    moment pools, in place. ``clip_norm`` clips the dense leaves alone.
     """
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
@@ -63,7 +61,8 @@ class SparseRowGrad(NamedTuple):
     rows first, then the padding, entries equal to the pool's row count
     with zero values (the dedupe's order, which the global norm's kernel
     relies on to skip the padding); ``vals`` (N, D) f32 summed cotangents.
-    Norms, clipping and compression skip the integer ``rows``.
+    Norms, clipping and compression skip the integer ``rows``; the
+    optimizer's ``apply`` updates the rows.
     """
     rows: torch.Tensor
     vals: torch.Tensor
@@ -189,14 +188,30 @@ def global_norm(tree) -> torch.Tensor:
     return multi_tensor.global_norm(list(_norm_leaves(tree)))
 
 
-def _clip_scale(grads, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    norm = global_norm(grads)
-    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _dense_clip_scale(grads, max_norm: float) -> torch.Tensor:
+    # the clip of the leaves updated densely: all but the SparseRowGrads
+    return _clip_scale(multi_tensor.global_norm([g for g in _norm_leaves(
+        grads) if not isinstance(g, SparseRowGrad)]), max_norm)
+
+
+def _pool_rows(store: torch.Tensor) -> torch.Tensor:
+    # flat (R, D) or padded (n_ps, max_range, D): a (rows, D) view
+    return store.reshape(-1, store.shape[-1])
+
+
+def clip_by_norm(grads, norm: torch.Tensor, max_norm: float):
+    """``grads`` clipped to ``max_norm``, given their global norm ``norm``."""
+    scale = _clip_scale(norm, max_norm)
+    return _map_inexact(lambda g: g * scale.to(g.dtype), grads)
 
 
 def clip_by_global_norm(grads, max_norm: float):
-    scale, norm = _clip_scale(grads, max_norm)
-    return _map_inexact(lambda g: g * scale.to(g.dtype), grads), norm
+    norm = global_norm(grads)
+    return clip_by_norm(grads, norm, max_norm), norm
 
 
 def compress_grads(grads, dtype=torch.bfloat16):
@@ -227,7 +242,7 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         the old tensors alive."""
         scale = None
         if clip_norm is not None:
-            scale, _ = _clip_scale(grads, clip_norm)
+            scale = _dense_clip_scale(grads, clip_norm)
         count = state["count"] + 1
         tc = count.float()
         bias1, bias2 = 1 - b1 ** tc, 1 - b2 ** tc
@@ -237,6 +252,16 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         for path in list(_paths(params)):
             g = _get(grads, path, donate)
             p = _get(params, path, donate)
+            if isinstance(g, SparseRowGrad):
+                if master_weights or not apply:
+                    raise ValueError("adam: only apply without master "
+                                     "weights takes a SparseRowGrad leaf")
+                m, v = (_get(state[k], path, donate) for k in ("m", "v"))
+                update_rows(g.rows, g.vals,
+                            {"m": m, "v": v, "count": state["count"]}, p)
+                for tree, leaf in ((out, p), (m_out, m), (v_out, v)):
+                    _put(tree, path, leaf)
+                continue
             if scale is not None:
                 g = g * scale.to(g.dtype)
             g32 = g.float()
@@ -275,12 +300,12 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def update_rows(rows, row_grads, state, params):
         # lazy (row-wise) adam: moments of untouched rows are NOT decayed;
-        # the bias correction uses the count the dense-side update advances
+        # the bias correction uses the step's count, as the dense leaves do
         tc = (state["count"] + 1).float()
         new_params, new_m, new_v = kernel_ops.fused_row_update(
-            params, rows, row_grads, state["m"], state["v"], kind="adam",
-            lr=lr, b1=b1, b2=b2, eps=eps, count=tc,
-            weight_decay=weight_decay)
+            _pool_rows(params), rows, row_grads, _pool_rows(state["m"]),
+            _pool_rows(state["v"]), kind="adam", lr=lr, b1=b1, b2=b2,
+            eps=eps, count=tc, weight_decay=weight_decay)
         return new_params, {"m": new_m, "v": new_v}
 
     return Optimizer(init, update,
@@ -299,25 +324,36 @@ def adagrad(lr: float, *, eps: float = 1e-10,
         return {"acc": _zeros_like(params)}
 
     def run(grads, state, params, apply: bool):
-        """(updates or new params, new state) of every leaf at once
-        (``multi_tensor.dense_adagrad``), clipped by the scale of
-        ``clip_by_global_norm`` where ``clip_norm`` is set."""
+        """(updates or new params, new state): every dense leaf at once
+        (``multi_tensor.dense_adagrad``), clipped by their global norm
+        where ``clip_norm`` is set, then each ``SparseRowGrad`` leaf's
+        rows in place (``update_rows``)."""
         scale = None
         if clip_norm is not None:
-            scale, _ = _clip_scale(grads, clip_norm)
-        gs, accs, ps = [], [], []
+            scale = _dense_clip_scale(grads, clip_norm)
+        gs, accs, ps, sparse = [], [], [], []
 
         def collect(p, g, a):
-            gs.append(g)
-            accs.append(a)
-            ps.append(p)
+            if not isinstance(g, SparseRowGrad):
+                gs.append(g)
+                accs.append(a)
+                ps.append(p)
+            elif apply:
+                sparse.append((g, a, p))
+            else:
+                raise ValueError("adagrad: only apply takes a SparseRowGrad")
 
         tree_map(collect, params, grads, state["acc"])
         outs, new_accs = multi_tensor.dense_adagrad(
             gs, accs, ps, lr=lr, eps=eps, scale=scale, apply=apply)
+        for g, a, p in sparse:
+            update_rows(g.rows, g.vals, {"acc": a}, p)
         out_it, acc_it = iter(outs), iter(new_accs)
-        return (tree_map(lambda _: next(out_it), params),
-                {"acc": tree_map(lambda _: next(acc_it), params)})
+        return (tree_map(lambda p, g: p if isinstance(g, SparseRowGrad)
+                         else next(out_it), params, grads),
+                {"acc": tree_map(lambda p, g, a: a if isinstance(
+                    g, SparseRowGrad) else next(acc_it), params, grads,
+                    state["acc"])})
 
     def update(grads, state, params):
         return run(grads, state, params, apply=False)
@@ -329,8 +365,8 @@ def adagrad(lr: float, *, eps: float = 1e-10,
         # row-wise adagrad is bit-exact vs the dense path up to FMA ULPs:
         # untouched rows see g == 0, an exact no-op
         new_params, new_acc = kernel_ops.fused_row_update(
-            params, rows, row_grads, state["acc"], kind="adagrad",
-            lr=lr, eps=eps)
+            _pool_rows(params), rows, row_grads, _pool_rows(state["acc"]),
+            kind="adagrad", lr=lr, eps=eps)
         return new_params, {"acc": new_acc}
 
     return Optimizer(init, update, update_rows=update_rows,

@@ -38,6 +38,7 @@ from repro_torch.core.flash_checkpoint import FlashCheckpoint, LeafSpec, keystr
 from repro_torch.core.sharding_service import ReplanDecision
 from repro_torch.kernels.fused_embedding import (column_values, lookup_tables,
                                                 table_offsets)
+from repro_torch.models.dlrm import POOLED_KEYS
 from repro_torch.sharding.policy import (EmbeddingPlan, PaddedLayout,
                                          ShardingPolicy, make_dlrm_policy,
                                          padded_layout_for_ranges,
@@ -46,7 +47,6 @@ from repro_torch.train import state_tree
 from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.optim import Optimizer
 
-POOLED_KEYS = frozenset(("tables", "wide"))
 # the one leaf a stamped blob may lack (blobs from before padded layouts)
 PADDED_N_PS_KEY = keystr(("padded_n_ps",))
 

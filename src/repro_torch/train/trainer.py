@@ -4,10 +4,10 @@
 A train state is ``{"params": params, "opt": optimizer state, "step":
 int}``. ``make_train_step`` builds the step of any ``ModelAPI`` (the LM
 families and the enc-dec), as the reference's: loss and gradients (pattern
-groups recomputed in the backward with ``remat``), optional bf16 gradient
-compression, the global norm, and the optimizer applied leaf by leaf
-(``optim.update_and_apply``), returning new tensors. Attention trains
-through the chunked route (``models/transformer.full_attention``).
+groups recomputed in the backward with ``remat``), then the optimizer
+phase every step shares: optional bf16 gradient compression, the global
+norm, and ``optim.update_and_apply``, returning new tensors. Attention
+trains through the chunked route (``models/transformer.full_attention``).
 ``make_eval_step`` is the loss without autograd, so attention takes K4.
 ``train_state_specs`` (logical-axis specs of a device mesh) has no
 counterpart: one GPU has no mesh.
@@ -19,11 +19,12 @@ counterpart: one GPU has no mesh.
   backward scatters deduped rows into a dense pool gradient) and updates
   every parameter (``optim.update_and_apply``), returning new tensors;
 * the fused sparse step (``plan.sparse_update``) differentiates only the
-  dense network at the ``dlrm_embeddings`` seam, turns each pooled store's
-  bag cotangent into deduped COO row grads, and updates exactly those rows
-  with ``optimizer.update_rows``. The pooled stores and their moment pools
-  are updated IN PLACE by K2/K3 (on the CPU by their plain versions): the
-  returned state holds the same pool tensors as the one passed in.
+  dense network at the ``dlrm_embeddings`` seam and turns each pooled
+  store's bag cotangent into deduped COO row grads, a ``SparseRowGrad``
+  leaf. The optimizer owns its state and the row update: its ``apply``
+  updates the pooled stores and their moment pools IN PLACE by K2/K3 (on
+  the CPU by their plain versions), so the returned state holds the same
+  pool tensors as the one passed in.
 """
 from __future__ import annotations
 
@@ -72,18 +73,8 @@ def make_train_step(api: ModelAPI, optimizer: Optimizer, *,
     read the state it passed in."""
     def train_step(state, batch):
         loss, grads = loss_and_grads(api, state["params"], batch, remat=remat)
-        if grad_compress:
-            grads = optim_mod.compress_grads(grads)
-        gnorm = optim_mod.global_norm(grads)
-        with torch.profiler.record_function("train_step.optimizer"):
-            params, opt_state = optim_mod.update_and_apply(
-                optimizer, grads, state["opt"], state["params"],
-                donate=donate)
-        step = state["step"] + 1
-        if donate:
-            state.clear()
-        return ({"params": params, "opt": opt_state, "step": step},
-                {"loss": loss, "grad_norm": gnorm})
+        return _optimizer_phase(optimizer, state, grads, loss, grad_compress,
+                                donate=donate)
 
     return train_step
 
@@ -96,6 +87,30 @@ def make_eval_step(api: ModelAPI) -> Callable:
             return api.loss(state["params"], batch, remat=False)
 
     return eval_step
+
+
+def _optimizer_phase(optimizer: Optimizer, state, grads, loss,
+                     grad_compress: bool, *, donate: bool = False):
+    """The end of every train step, the span ``train_step.optimizer``:
+    compression where ``grad_compress`` is set, the global norm once, the
+    joint clip where the (flat DLRM) tree holds ``SparseRowGrad`` leaves
+    and the optimizer has a clip, then ``update_and_apply``. Returns
+    ``(new state, {"loss", "grad_norm"})``, the norm before clipping."""
+    with torch.profiler.record_function("train_step.optimizer"):
+        if grad_compress:
+            grads = optim_mod.compress_grads(grads)
+        gnorm = optim_mod.global_norm(grads)
+        if optimizer.clip_norm is not None and any(
+                isinstance(g, optim_mod.SparseRowGrad)
+                for g in grads.values()):
+            grads = optim_mod.clip_by_norm(grads, gnorm, optimizer.clip_norm)
+        params, opt_state = optim_mod.update_and_apply(
+            optimizer, grads, state["opt"], state["params"], donate=donate)
+    step = state["step"] + 1
+    if donate:
+        state.clear()
+    return ({"params": params, "opt": opt_state, "step": step},
+            {"loss": loss.detach(), "grad_norm": gnorm})
 
 
 # --- DLRM --------------------------------------------------------------------
@@ -148,14 +163,13 @@ def make_dlrm_train_step(cfg: DLRMConfig, optimizer: Optimizer,
     Under ``torch.profiler`` each step records ``record_function`` spans
     at its layer boundaries, in order and without overlap. The dense step
     has the LM step's two: ``train_step.forward_backward`` (the loss and
-    its gradients) and ``train_step.optimizer`` (compression, the global
-    norm and the update). The fused sparse step has four:
-    ``train_step.embeddings`` (the bags, K1), ``train_step.forward_backward``
-    (the dense network's forward, the loss and the gradients of the dense
-    params and the bag outputs), ``train_step.sparse_grads`` (the bag
-    cotangents to deduped row grads) and ``train_step.optimizer``
-    (compression, the global norm, the clip, the dense update and the row
-    updates, K2/K3). With no profiler active a span records nothing.
+    its gradients) and ``train_step.optimizer`` (``_optimizer_phase``). The
+    fused sparse step has four: ``train_step.embeddings`` (the bags, K1),
+    ``train_step.forward_backward`` (the dense network's forward, the loss
+    and the gradients of the dense params and the bag outputs),
+    ``train_step.sparse_grads`` (the bag cotangents to deduped row grads)
+    and ``train_step.optimizer`` (with the row updates, K2/K3). With no
+    profiler active a span records nothing.
     """
     if plan.sparse_update and optimizer.update_rows is not None:
         return _make_dlrm_sparse_step(cfg, optimizer, grad_compress, plan)
@@ -166,39 +180,9 @@ def make_dlrm_train_step(cfg: DLRMConfig, optimizer: Optimizer,
                       for k, v in state["params"].items()}
             loss = dlrm_mod.dlrm_loss(leaves, batch, cfg, plan)
             grads = _grads(loss, leaves)
-        with torch.profiler.record_function("train_step.optimizer"):
-            if grad_compress:
-                grads = optim_mod.compress_grads(grads)
-            gnorm = optim_mod.global_norm(grads)
-            params, opt_state = optim_mod.update_and_apply(
-                optimizer, grads, state["opt"], state["params"])
-        new_state = {"params": params, "opt": opt_state,
-                     "step": state["step"] + 1}
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return _optimizer_phase(optimizer, state, grads, loss, grad_compress)
 
     return train_step
-
-
-def _split_opt_state(opt_state, sparse_keys):
-    """Split a dict-of-mirrors optimizer state at the pooled-store leaves.
-
-    Mirrors of the params (dicts holding every sparse key) split into a
-    dense remainder + one slice per pooled store; shared scalars (adam's
-    ``count``) stay in the dense state AND ride along in every per-leaf
-    slice, as ``Optimizer.update_rows`` expects.
-    """
-    dense_state, leaf_state = {}, {k: {} for k in sparse_keys}
-    for name, sub in opt_state.items():
-        if isinstance(sub, dict) and all(k in sub for k in sparse_keys):
-            dense_state[name] = {k: v for k, v in sub.items()
-                                 if k not in sparse_keys}
-            for k in sparse_keys:
-                leaf_state[k][name] = sub[k]
-        else:
-            dense_state[name] = sub
-            for k in sparse_keys:
-                leaf_state[k][name] = sub
-    return dense_state, leaf_state
 
 
 def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
@@ -207,14 +191,12 @@ def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
 
     (a) the embeddings are computed once without autograd and the loss is
     differentiated w.r.t. the dense params and the bag outputs only; (b)
-    each store's bag cotangent becomes deduped COO row grads
-    (``ops.sparse_row_grads``, a ``SparseRowGrad`` leaf); (c) the row-wise
-    optimizer update touches exactly those rows, in place. Clipping happens
-    once over the joint dense+sparse tree.
+    each pooled store's bag cotangent becomes deduped COO row grads
+    (``ops.sparse_row_grads``, a ``SparseRowGrad`` leaf); (c) the optimizer
+    phase clips the joint dense+sparse tree once and the optimizer's
+    ``apply`` updates the dense leaves and exactly those rows, in place.
     """
-    sparse_keys = dlrm_mod.sparse_param_keys(cfg)
-    emb_of = {"tables": "deep", "wide": "wide"}
-    plan_of = {"tables": plan, "wide": plan.with_combiner("sum")}
+    stores = dlrm_mod.pooled_stores(cfg)
 
     def train_step(state, batch):
         params = state["params"]
@@ -222,10 +204,9 @@ def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
                 torch.no_grad():
             embs = dlrm_mod.dlrm_embeddings(params, batch, cfg, plan)
         with torch.profiler.record_function("train_step.forward_backward"):
-            dense_params = {k: v for k, v in params.items()
-                            if k not in sparse_keys}
             leaves = {k: v.detach().requires_grad_()
-                      for k, v in dense_params.items()}
+                      for k, v in params.items()
+                      if k not in dlrm_mod.POOLED_KEYS}
             emb_leaves = {k: e.requires_grad_() for k, e in embs.items()}
             loss = dlrm_mod.dlrm_loss_from_embeddings(leaves, batch,
                                                       emb_leaves, cfg)
@@ -234,47 +215,12 @@ def _make_dlrm_sparse_step(cfg: DLRMConfig, optimizer: Optimizer,
 
         with torch.profiler.record_function("train_step.sparse_grads"):
             grads: Dict[str, Any] = {k: g_all[k] for k in leaves}
-            for k in sparse_keys:
-                pool = dlrm_mod._pool2d(params[k], plan.layout)
+            for s in stores:
                 rows, vals, _ = kernel_ops.sparse_row_grads(
-                    pool, batch["sparse"], g_all[f"emb:{emb_of[k]}"],
-                    plan=plan_of[k])
-                grads[k] = optim_mod.SparseRowGrad(rows, vals)
+                    dlrm_mod.pool_rows(params[s.param]), batch["sparse"],
+                    g_all[f"emb:{s.bag}"], plan=s.bag_plan(plan))
+                grads[s.param] = optim_mod.SparseRowGrad(rows, vals)
 
-        with torch.profiler.record_function("train_step.optimizer"):
-            if grad_compress:
-                grads = optim_mod.compress_grads(grads)
-            gnorm = optim_mod.global_norm(grads)
-            if optimizer.clip_norm is not None:
-                grads, _ = optim_mod.clip_by_global_norm(grads,
-                                                         optimizer.clip_norm)
-
-            dense_state, leaf_state = _split_opt_state(state["opt"],
-                                                       sparse_keys)
-            dense_only = {k: v for k, v in grads.items()
-                          if k not in sparse_keys}
-            new_params, new_dense_state = optim_mod.update_and_apply(
-                optimizer, dense_only, dense_state, dense_params)
-            new_opt = dict(new_dense_state)
-            for k in sparse_keys:
-                store = params[k]
-                pool = dlrm_mod._pool2d(store, plan.layout)
-                leaf = {name: (dlrm_mod._pool2d(arr, plan.layout)
-                               if getattr(arr, "shape", None) == store.shape
-                               else arr)
-                        for name, arr in leaf_state[k].items()}
-                # K2/K3 update `pool` and the moment pools in place; the
-                # views share storage with the stores, so `store` holds the
-                # result
-                optimizer.update_rows(grads[k].rows, grads[k].vals, leaf,
-                                      pool)
-                new_params[k] = store
-                for name in leaf:
-                    if name in new_opt and isinstance(new_opt[name], dict):
-                        new_opt[name] = dict(new_opt[name])
-                        new_opt[name][k] = leaf_state[k][name]
-        new_state = {"params": new_params, "opt": new_opt,
-                     "step": state["step"] + 1}
-        return new_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return _optimizer_phase(optimizer, state, grads, loss, grad_compress)
 
     return train_step

@@ -27,6 +27,7 @@ from repro_torch.data.synthetic import criteo_batch
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import fused_embedding as fe
 from repro_torch.kernels import multi_tensor as mt
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.train import to_device
 from repro_torch.models import dlrm as dlrm_mod
 from repro_torch.sharding import policy as tpol
@@ -236,13 +237,13 @@ def test_dedupe_rows_end_in_the_tail_the_norm_skips(route):
 
 
 # --- the train steps on the CPU ----------------------------------------------
-def _dlrm(kind, sparse, opt_name="adagrad"):
+def _dlrm(kind, sparse, opt_name="adagrad", **opt_kw):
     cfg = dataclasses.replace(tcfg.reduced_dlrm(
         tcfg.DLRM_DCNV2 if kind == "dlrm_dcnv2" else get_dlrm(kind)),
         zipf_alpha=1.05, hot_rows_k=8)
     layout = tpol.padded_layout_for_ranges(
         tpol.uniform_vocab_ranges(cfg.total_embedding_rows, 4))
-    opt = optim.make(opt_name, LR)
+    opt = optim.make(opt_name, LR, **opt_kw)
     state = trainer.make_dlrm_train_state(
         cfg, opt, torch.Generator().manual_seed(0), layout=layout)
     step = trainer.make_dlrm_train_step(
@@ -285,22 +286,124 @@ def test_adam_steps_take_no_adagrad_leaves():
     assert set(cuda_lib.LEAF_COUNTS.values()) == {0}
 
 
+def _dense_part(opt_state, stores):
+    """The optimizer state of the dense leaves: every mirror of the params
+    without the stores; shared scalars (adam's ``count``) as they are."""
+    return {name: {k: v for k, v in sub.items() if k not in stores}
+            if isinstance(sub, dict) else sub
+            for name, sub in opt_state.items()}
+
+
 @pytest.mark.parametrize("opt_name", ["adagrad", "adam"])
 def test_sparse_step_update_is_the_old_update_then_apply(opt_name):
-    """The fused sparse step's dense half, now one ``update_and_apply``,
-    gives the bits of ``optimizer.update`` + ``apply_updates``."""
+    """The dense half of ``apply`` on the sparse step's joint tree gives
+    the bits of ``optimizer.update`` + ``apply_updates`` on the dense
+    subtree (adam's default clip included: it reads the dense leaves)."""
     cfg, state, step, batches = _dlrm("wide_deep", True, opt_name)
     opt = optim.make(opt_name, LR)
     stores = dlrm_mod.sparse_param_keys(cfg)
     rng = np.random.default_rng(6)
-    dense = {k: v for k, v in state["params"].items() if k not in stores}
+    params = state["params"]
+    dense = {k: v for k, v in params.items() if k not in stores}
     grads = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(
         np.float32)) for k, v in dense.items()}
-    dstate = trainer._split_opt_state(state["opt"], stores)[0]
+    dstate = _dense_part(state["opt"], stores)
     upd, s1 = opt.update(grads, dstate, dense)
-    p2, s2 = optim.update_and_apply(opt, grads, dstate, dense)
-    _same(p2, optim.apply_updates(dense, upd))
-    _same(s2, s1)
+    joint = dict(grads)
+    for k in stores:
+        R = dlrm_mod.pool_rows(params[k]).shape[0]
+        joint[k] = _sparse_leaf(rng, 5, 3, params[k].shape[-1], R)
+    p2, s2 = opt.apply(joint, state["opt"], params)
+    _same({k: p2[k] for k in dense}, optim.apply_updates(dense, upd))
+    _same(_dense_part(s2, stores), s1)
+
+
+def _row_case(opt_name):
+    """A padded (n_ps, max_range, D) store and a dense leaf, carried
+    optimizer state, and the joint gradient tree."""
+    rng = np.random.default_rng(7)
+    n_ps, max_range, D = 3, 8, 4
+    params = {"tables": torch.from_numpy(rng.standard_normal(
+        (n_ps, max_range, D)).astype(np.float32)),
+        "w": torch.from_numpy(rng.standard_normal((5, 3)).astype(
+            np.float32))}
+    opt = optim.make(opt_name, LR, **({"weight_decay": 0.01}
+                                      if opt_name == "adam" else {}))
+
+    def carried(x):         # moments in (0.1, 2); adam's count at 4
+        if x.dim():
+            return torch.from_numpy(rng.uniform(0.1, 2, tuple(x.shape))
+                                    .astype(np.float32))
+        return torch.tensor(4, dtype=torch.int32)
+
+    state = optim.tree_map(carried, opt.init(params))
+    grads = {"tables": _sparse_leaf(rng, 7, 5, D, n_ps * max_range),
+             "w": torch.from_numpy(rng.standard_normal((5, 3)).astype(
+                 np.float32))}
+    return opt, params, state, grads
+
+
+@pytest.mark.parametrize("opt_name", ["adagrad", "adam"])
+def test_apply_updates_a_row_leaf_in_place_as_the_row_kernel(opt_name):
+    """A ``SparseRowGrad`` leaf through ``apply``: the bits of
+    ``ops.fused_row_update`` on the flattened pools (unclipped: adam's clip
+    reads the dense leaves only), and the store and its moment pools come
+    back as the same tensors."""
+    opt, params, state, grads = _row_case(opt_name)
+    moments = ("acc",) if opt_name == "adagrad" else ("m", "v")
+    want = [params["tables"].clone()] + [state[k]["tables"].clone()
+                                         for k in moments]
+    hyper = {"lr": LR, "eps": EPS} if opt_name == "adagrad" else {
+        "lr": LR, "b1": 0.9, "b2": 0.999, "eps": 1e-8, "weight_decay": 0.01,
+        "count": (state["count"] + 1).float()}
+    store, *pools = (w.reshape(-1, w.shape[-1]) for w in want)
+    kernel_ops.fused_row_update(store, grads["tables"].rows,
+                                grads["tables"].vals, *pools, kind=opt_name,
+                                **hyper)
+    new_p, new_s = opt.apply(grads, state, params)
+    assert new_p["tables"] is params["tables"]
+    assert torch.equal(new_p["tables"], want[0])
+    for k, w in zip(moments, want[1:]):
+        assert new_s[k]["tables"] is state[k]["tables"]
+        assert torch.equal(new_s[k]["tables"], w)
+    assert not torch.equal(want[0], _row_case(opt_name)[1]["tables"])
+    if opt_name == "adam":
+        assert int(new_s["count"]) == int(state["count"]) + 1
+
+
+@pytest.mark.parametrize("how", ["adagrad.update", "adam.update",
+                                 "adam_master.apply"])
+def test_only_apply_takes_a_row_leaf(how):
+    name, call = how.split(".")
+    opt_name = name.split("_")[0]
+    opt, params, state, grads = _row_case(opt_name)
+    if name == "adam_master":
+        opt = optim.adam(LR, master_weights=True)
+        state = opt.init(params)
+    before = params["tables"].clone()
+    with pytest.raises(ValueError, match="SparseRowGrad"):
+        getattr(opt, call)(grads, state, params)
+    assert torch.equal(params["tables"], before)
+
+
+@pytest.mark.parametrize("opt_name", ["adagrad", "adam"])
+def test_sparse_step_with_a_clip_takes_the_global_norm_once(monkeypatch,
+                                                           opt_name):
+    """The joint norm is taken once and also scales the joint clip; the
+    optimizer's own clip then reads the dense leaves alone."""
+    _, state, step, batches = _dlrm("wide_deep", True, opt_name,
+                                    clip_norm=0.5)
+    norm, calls = mt.global_norm, []
+
+    def counted(leaves):
+        calls.append(sum(isinstance(l, optim.SparseRowGrad)
+                         for l in leaves))
+        return norm(leaves)
+
+    monkeypatch.setattr(mt, "global_norm", counted)
+    _, m = step(state, batches[0])
+    assert calls == [2, 0]      # the joint tree (both stores), the dense part
+    assert torch.isfinite(m["grad_norm"])
 
 
 # --- the benchmark's reader ---------------------------------------------------

@@ -81,7 +81,7 @@ def _accs(params, carried, seed=1):
 
 
 def _scale(grads, clip):
-    return optim._clip_scale(grads, 1e-3)[0] if clip else None
+    return optim._clip_scale(optim.global_norm(grads), 1e-3) if clip else None
 
 
 def _check_bits(grads, accs, params, scale, apply=True):
