@@ -70,6 +70,18 @@ Phases, each of which fails the run (exit 1, no ``ok`` line):
    phase 5, in turns with the op-by-op path (plain) and ``torch._foreach_*``
    of the same expressions (library), twice, beside its bound (bytes), with
    the host's time to enqueue one call.
+6 (d). xDeepFM's CIN kernels (``csrc/cin.cu``) at the xDeepFM cell's shapes
+   (B=8,192, m=26, D=16; layer 0 with 26 maps, ``xk`` is ``x0``; layer 1
+   with 128, ``xk`` the permuted view of a ``torch.mm`` output): the
+   product equal bit for bit to the broadcast product laid out (B*D, H*m),
+   the contraction bit for bit to the eager products and sums it replaced
+   and within CIN_BOUND_N n 2^-24 of the float64 sum of its terms'
+   magnitudes (n terms an output), two calls equal. Each is
+   timed as in phase 5, in turns with its plain version (einsums) and the
+   PyTorch expression it replaced (library: the einsum's (B, H, m, D)
+   product and its permuted copy; the broadcast products and reductions
+   autograd ran over the product's cotangent), twice, beside its bound
+   (bytes: the operand written, or its cotangent read, at 3.35 TB/s).
 
 The LM slice (llama3.2-3b at full width: 28 layers, d_model 3072, 24/8
 heads of 128, d_ff 8192, vocab 128256, bf16; random weights from a seeded
@@ -424,6 +436,8 @@ PTXAS_REPORTED = {
     "grad_sq_norm_kernel": "MT grad_sq_norm",
     "grad_sq_norm_finish": "MT grad_sq_norm finish",
     "dense_adagrad_kernel": "MT dense_adagrad",
+    "cin_product_kernelILb1E": "CIN product (float4)",
+    "cin_contract_kernelILb1E": "CIN contract (float4)",
     **{f"rows_{kind}_kernelI\\w*{op}E": f"{k} {name}"
        for op, k in (("AdagradOp", "K2"), ("AdamOp", "K3"))
        for kind, name in (("vec16", "D=16 vector"), ("wide", "D=1 scalar"),
@@ -467,7 +481,7 @@ def phase_build(report):
     for name, line in ptxas.items():
         log(f"  ptxas {name}: {line}")
         if name.startswith(("K1", "K2", "K3", "K4", "K5 split D<=256",
-                            "K5 split D<=128, G>8", "SS", "MT")):
+                            "K5 split D<=128, G>8", "SS", "MT", "CIN")):
             spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
                                 r"spill loads", line)
             check(spills and all(a == b == "0" for a, b in spills),
@@ -1349,6 +1363,109 @@ def phase_dcnv2(report, dev, kernels):
         log(f"  {kernel} D=128: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
             f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
             f"{t['live_rows']} live rows)")
+
+
+CIN_CELL = {"B": 8192, "m": 26, "D": 16, "H": (26, 128)}   # H: input maps
+CIN_BOUND_N = 2               # the contraction vs float64, in units of n u
+
+
+def phase_cin(report, dev, kernels):
+    """Phase 6 (d): the CIN kernels at the xDeepFM cell's two layers;
+    two entries appended to ``kernels``."""
+    import torch
+    from repro_torch.kernels import cin as cin_k
+    from repro_torch.kernels import cuda_lib
+    B, m, D = CIN_CELL["B"], CIN_CELL["m"], CIN_CELL["D"]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x0 = torch.randn((B, m, D), generator=gen, device=dev)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {"cin_product": {}, "cin_contract": {}}
+    for H in CIN_CELL["H"]:
+        log(f"phase 6 (d) CIN: layer of {H} maps, B={B}, m={m}, D={D}")
+        xk = x0 if H == m else torch.randn(
+            (B * D, H), generator=gen, device=dev).view(B, D, H).permute(
+                0, 2, 1)
+        elems = B * D * H * m
+        maps_bytes = 4 * (B * H * D + (B * m * D if H != m else 0))
+
+        def replaced_product():
+            inter = torch.einsum("bhd,bmd->bhmd", xk, x0)
+            return inter.permute(0, 3, 1, 2).reshape(B * D, H * m)
+
+        cuda_lib.reset_launches()
+        z = cin_k.cin_product(xk, x0)
+        check(cuda_lib.LAUNCHES["cin_product"] == 1,
+              "cin_product did not launch its kernel")
+        check(torch.equal(z, (xk[:, :, None] * x0[:, None]).permute(
+            0, 3, 1, 2).reshape(B * D, H * m)),
+            f"CIN product at H={H} differs from the broadcast product")
+        check(torch.equal(z, replaced_product()),
+              f"CIN product at H={H} differs from the einsum it replaced")
+        del z
+        torch.cuda.empty_cache()
+        times, host = _turns({
+            "ms": lambda: cin_k.cin_product(xk, x0),
+            "plain_ms": lambda: cin_k.cin_product_plain(xk, x0),
+            "library_ms": replaced_product}, flush)
+        b_ms, by = bound_ms(4 * elems + maps_bytes, elems)
+        out["cin_product"][f"H={H}"] = {
+            **times, **{f"host_{k}": v for k, v in host.items()},
+            "bound_ms": b_ms, "bound_by": by, "bit_for_bit": True,
+            "operand_bytes": 4 * elems}
+
+        gz = torch.randn((B * D, H * m), generator=gen, device=dev)
+
+        def replaced_contract():
+            gi = gz.view(B, D, H, m).permute(0, 2, 3, 1)
+            return (gi * x0[:, None]).sum(2), (gi * xk[:, :, None]).sum(1)
+
+        gxk, gx0 = cin_k.cin_contract(gz, xk, x0)
+        again = cin_k.cin_contract(gz, xk, x0)
+        check(torch.equal(gxk, again[0]) and torch.equal(gx0, again[1]),
+              f"CIN contract at H={H}: two calls differ")
+        again = replaced_contract()
+        check(torch.equal(gxk, again[0]) and torch.equal(gx0, again[1]),
+              f"CIN contract at H={H} differs from the eager sums")
+        del again
+        rel = {}
+        g64 = gz.double().view(B, D, H, m)
+        for name, got, n, terms in (
+                ("gxk", gxk, m, ("bdhj,bjd->bhd", x0)),
+                ("gx0", gx0, H, ("bdhj,bhd->bjd", xk))):
+            spec, other = terms
+            want = torch.einsum(spec, g64, other.double())
+            mag = torch.einsum(spec, g64.abs(), other.double().abs())
+            err = (got.double() - want).abs()
+            check(bool((err <= CIN_BOUND_N * n * 2.0 ** -24 * mag).all()),
+                  f"CIN contract {name} at H={H} beyond its bound")
+            rel[name] = float((err / mag.clamp_min(1e-30)).max())
+            del want, mag, err
+        del g64, gxk, gx0
+        torch.cuda.empty_cache()
+        times, host = _turns({
+            "ms": lambda: cin_k.cin_contract(gz, xk, x0),
+            "plain_ms": lambda: cin_k.cin_contract_plain(gz, xk, x0),
+            "library_ms": replaced_contract}, flush)
+        b_ms, by = bound_ms(4 * elems + maps_bytes + 4 * B * D * (H + m),
+                            4 * elems)
+        out["cin_contract"][f"H={H}"] = {
+            **times, **{f"host_{k}": v for k, v in host.items()},
+            "bound_ms": b_ms, "bound_by": by, "bit_for_bit": True,
+            "max_err_over_magnitude": rel, "operand_bytes": 4 * elems}
+        del gz, xk
+        torch.cuda.empty_cache()
+    for name, per in out.items():
+        for at, t in per.items():
+            log(f"  CIN {name} {at}: {t['ms']} ms, plain {t['plain_ms']} "
+                f"ms, library {t['library_ms']} ms (in turns), bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        kernels.append({"name": f"CIN {name}", "route": "cuda",
+                        "source": "src/repro_torch/csrc/cin.cu",
+                        "replaces": None,
+                        "at": f"the xDeepFM cell's layers, B={B}, m={m}, "
+                              f"D={D}", **per})
+    report["cin"] = out
+    return out
 
 
 def _max_sm_mhz() -> float:
@@ -3904,6 +4021,8 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
         phase_dcnv2(report, dev, kernels)
+        torch.cuda.empty_cache()
+        phase_cin(report, dev, kernels)
         torch.cuda.empty_cache()
         replan_line = phase_replan(report, dev,
                                    slice_info["launcher_steps_per_s"])

@@ -58,6 +58,8 @@ LAUNCHES: Dict[str, int] = {
     "row_update_d128": 0,         # K2/K3's D=128 route (a warp per row)
     "grad_sq_norm": 0,            # the optimizer's global norm, a call
     "dense_adagrad": 0,           # the dense adagrad update, a call
+    "cin_product": 0,             # xDeepFM's CIN: a layer's outer products
+    "cin_contract": 0,            # and their cotangent's contraction
 }
 ROW_COUNTS: Dict[str, int] = {
     "rows_deduped": 0,            # fused_embedding.dedupe_rows
@@ -94,6 +96,12 @@ _SIGNATURES = {
         [_VP, _VP, _VP, _LL, _I, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
     "repro_grad_sq_norm": [_VP, _I, _VP, _VP, _I, _VP],
     "repro_dense_adagrad": [_VP, _I, _F, _F, _VP, _I, _I, _VP],
+    "repro_cin_product_f32":
+        [_VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _VP, _I,
+         _VP],
+    "repro_cin_contract_f32":
+        [_VP, _VP, _LL, _LL, _LL, _VP, _LL, _LL, _LL, _I, _I, _I, _I, _VP, _VP,
+         _I, _VP],
 }
 
 _loaded: List[ctypes.CDLL] = []

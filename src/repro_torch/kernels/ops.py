@@ -2,10 +2,12 @@
 
 Port of ``fused_embedding_bag``, ``embedding_bag``, ``sparse_row_grads``,
 ``fused_row_update``, ``flash_attention`` and ``decode_attention`` of
-``repro/kernels/ops.py``. There is no implementation switch: each call
-dispatches by the device of its tensors. CUDA tensors launch the
-hand-written kernels (K1 for the embedding bags, K2/K3 for the row updates,
-K4 for full-sequence attention, K5 for cache attention); CPU tensors run
+``repro/kernels/ops.py``, and the port's own ``cin_product`` and
+``cin_contract`` (xDeepFM's CIN, which the reference leaves to XLA). There
+is no implementation switch: each call dispatches by the device of its
+tensors. CUDA tensors launch the hand-written kernels (K1 for the embedding
+bags, K2/K3 for the row updates, K4 for full-sequence attention, K5 for
+cache attention, ``csrc/cin.cu`` for the CIN); CPU tensors run
 their plain PyTorch versions, and so do ``meta`` tensors at the bags and
 attention, which hold no data for a kernel to read (``launch/costs.py``
 counts FLOPs on them; the row updates' plain versions select rows by value
@@ -14,6 +16,7 @@ other device raises.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import cin
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_embedding as fe
@@ -73,6 +76,19 @@ def fused_row_update(params, rows, vals, *state, kind, **hyper):
         m, v = state
         return fu.adam_row_update(params, m, v, rows, vals, **hyper)
     raise ValueError(f"unknown row-update kind: {kind!r}")
+
+
+def cin_product(xk, x0):
+    """A CIN layer's outer products, xk (B, H, D) and x0 (B, m, D) ->
+    ``z`` (B*D, H*m), ``z[b*D + d, h*m + j] = xk[b, h, d] * x0[b, j, d]``:
+    the operand of ``torch.mm`` with the layer's (H*m, n) weight."""
+    return cin.cin_product(xk, x0)
+
+
+def cin_contract(gz, xk, x0):
+    """The cotangents ``(gxk, gx0)`` of ``xk`` and ``x0`` from ``gz``
+    (B*D, H*m), the cotangent of ``cin_product(xk, x0)``."""
+    return cin.cin_contract(gz, xk, x0)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=0.0,

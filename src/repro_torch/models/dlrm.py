@@ -18,7 +18,8 @@ MLP over the dense features) and, per cross layer ``l``, ``cross.v{l}``
 ``(d_in,)``; ``mlp.*`` is its over arch. Its cross network,
 ``x_{l+1} = x0 * ((x_l V_l) W_l + b_l) + x_l``, runs as one autograd
 Function whose forward and backward each record the span
-``train_step.cross``.
+``train_step.cross``. xDeepFM's CIN is one Function too, under the span
+``train_step.cin``: the kernels of ``kernels/cin.py`` around ``torch.mm``.
 """
 from __future__ import annotations
 
@@ -223,6 +224,78 @@ def low_rank_cross(params, x0: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
         *(params[f"cross_b.b{li}"] for li in n))
 
 
+class _CIN(torch.autograd.Function):
+    """xDeepFM's compressed interaction network over ``x0`` (B, m, D), one
+    weight (H, m, n) a layer: ``X^k = einsum("bhmd,hmn->bnd", X^{k-1} (x)
+    x0, W^k)`` from ``X^0 = x0``; returns every layer's maps summed over D,
+    concatenated, (B, sum n).
+
+    Per layer the forward is ``ops.cin_product`` (the outer products as the
+    (B*D, H*m) operand) and one ``torch.mm`` with W reshaped to (H*m, n),
+    whose (B*D, n) output is the next layer's maps, (B, D, n) in memory and
+    read through a permuted view. The backward, per layer from the last:
+    the maps' cotangent (the summed maps' cotangent broadcast over D, plus
+    the next layer's) as ``g2d`` (B*D, n); ``gz = g2d W^T``;
+    ``ops.cin_contract`` into the cotangents of the maps and of ``x0``;
+    ``gz`` freed, the product rebuilt by ``ops.cin_product`` for
+    ``gW = z^T g2d``, then freed: a layer's (B*D, H*m) operand and its
+    cotangent never live together. ``x0``'s cotangents are added in the
+    order plain autograd adds them (each layer's from the last, then layer
+    0's maps'), so on the card every gradient equals plain autograd's over
+    the same layout bit for bit. It saves ``x0``, each later layer's input
+    maps and the weights. Forward and backward each run under the span
+    ``train_step.cin``.
+    """
+
+    @staticmethod
+    def forward(ctx, x0, *weights):
+        B, m, D = x0.shape
+        with torch.profiler.record_function("train_step.cin"):
+            xk, ys, feats = x0, [], []
+            for w in weights:
+                H, _, n = w.shape
+                y = torch.mm(ops.cin_product(xk, x0), w.reshape(H * m, n))
+                ys.append(y)
+                feats.append(y.view(B, D, n).sum(dim=1))
+                xk = y.view(B, D, n).permute(0, 2, 1)
+            out = torch.cat(feats, dim=-1)
+        ctx.save_for_backward(x0, *weights, *ys[:-1])
+        ctx.n = len(weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, *rest = ctx.saved_tensors
+        weights, ys = rest[:ctx.n], rest[ctx.n:]
+        B, m, D = x0.shape
+        with torch.profiler.record_function("train_step.cin"):
+            g_feats = g.split([w.shape[2] for w in weights], dim=-1)
+            g_w = [None] * ctx.n
+            g_x0, g_next = None, None
+            for li in reversed(range(ctx.n)):
+                w = weights[li]
+                H, _, n = w.shape
+                w2d = w.reshape(H * m, n)
+                xk = x0 if li == 0 else ys[li - 1].view(B, D, H).permute(
+                    0, 2, 1)
+                g2d = g_feats[li][:, None, :].expand(B, D, n)
+                g2d = (g2d.contiguous() if g_next is None else
+                       g2d + g_next).view(B * D, n)
+                g_xk, gx0 = ops.cin_contract(torch.mm(g2d, w2d.t()), xk, x0)
+                g_w[li] = torch.mm(ops.cin_product(xk, x0).t(),
+                                   g2d).view(H, m, n)
+                g_x0 = gx0 if g_x0 is None else g_x0 + gx0
+                g_next = g_xk.permute(0, 2, 1)
+            g_x0 = g_x0 + g_xk
+        return (g_x0, *g_w)
+
+
+def cin(params, x0: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
+    """xDeepFM's CIN over ``x0`` (B, m, D): ``_CIN``, (B, sum(maps))."""
+    return _CIN.apply(x0, *(params[f"cin.w{li}"]
+                            for li in range(len(cfg.cin_layers))))
+
+
 def dlrm_forward_from_embeddings(params: Mapping[str, torch.Tensor], batch,
                                  embs: Mapping[str, torch.Tensor],
                                  cfg: DLRMConfig) -> torch.Tensor:
@@ -254,13 +327,7 @@ def dlrm_forward_from_embeddings(params: Mapping[str, torch.Tensor], batch,
         return _deep_mlp(params, x, cfg)
 
     if cfg.kind == "xdeepfm":
-        Xk = emb                                             # (B, H0=m, D)
-        feats = []
-        for li in range(len(cfg.cin_layers)):
-            inter = torch.einsum("bhd,bmd->bhmd", Xk, emb)
-            Xk = torch.einsum("bhmd,hmn->bnd", inter, params[f"cin.w{li}"])
-            feats.append(Xk.sum(dim=-1))                     # (B, maps)
-        cin_out = torch.cat(feats, dim=-1) @ params["cin.w_out"]
+        cin_out = cin(params, emb, cfg) @ params["cin.w_out"]
         return _deep_mlp(params, x0, cfg) + cin_out
 
     raise ValueError(cfg.kind)

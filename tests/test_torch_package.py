@@ -258,4 +258,4 @@ def test_library_path_tracks_the_sources():
     assert srcs == {"fused_embedding.cu", "fused_update.cu",
                     "flash_attention.cu", "flash_attention_tc.cu",
                     "decode_attention.cu", "segment_sum.cu",
-                    "multi_tensor.cu"}
+                    "multi_tensor.cu", "cin.cu"}

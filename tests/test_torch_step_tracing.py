@@ -4,8 +4,9 @@ The fused sparse step of a small Wide&Deep and a small xDeepFM (padded
 layout, hot-row cache) runs under ``torch.profiler`` (CPU activity): it
 records ``train_step.embeddings``, ``.forward_backward``, ``.sparse_grads``
 and ``.optimizer`` once a step, in that order and without overlap, and the
-dense step the LM step's two spans; the benchmark's span reduction finds
-them. ``cuda_lib.ROW_COUNTS`` counts the distinct rows of each store and
+dense step the LM step's two spans; xDeepFM's CIN records
+``train_step.cin`` twice a step (its forward and its backward) inside
+``.forward_backward``; the benchmark's span reduction finds them. ``cuda_lib.ROW_COUNTS`` counts the distinct rows of each store and
 the entries the row updates walk; ``reset_launches()`` zeroes them.
 """
 import dataclasses
@@ -32,6 +33,9 @@ KINDS = ["wide_deep", "xdeepfm"]
 SPARSE_SPANS = ["train_step.embeddings", "train_step.forward_backward",
                 "train_step.sparse_grads", "train_step.optimizer"]
 DENSE_SPANS = ["train_step.forward_backward", "train_step.optimizer"]
+# spans nested in train_step.forward_backward: xDeepFM's CIN, its forward
+# and its backward
+NESTED = {"wide_deep": [], "xdeepfm": ["train_step.cin"] * 2}
 STEPS = 2
 
 
@@ -94,15 +98,21 @@ def test_each_step_records_its_spans_in_order(kind, sparse, tmp_path):
     _assert_same_state(state, plain)
 
     want = SPARSE_SPANS if sparse else DENSE_SPANS
-    found = _step_spans(events)
+    every = _step_spans(events)
+    nested = [sp for sp in every if sp[2] in NESTED[kind]]
+    found = [sp for sp in every if sp not in nested]
     assert [name for _, _, name in found] == want * STEPS
     for (_, end, _), (start, _, _) in zip(found, found[1:]):
         assert end <= start
+    assert [name for _, _, name in nested] == NESTED[kind] * STEPS
+    fwd_bwd = [sp for sp in found if sp[2] == "train_step.forward_backward"]
+    for s, t, _ in nested:
+        assert any(a <= s and t <= b for a, b, _ in fwd_bwd)
     table = spans.reduce(events)
     # no device here: the host's time between the spans is "outside"
-    assert set(table) - {spans.OUTSIDE} == set(want)
+    assert set(table) - {spans.OUTSIDE} == set(want) | set(NESTED[kind])
     assert all(table[s]["host_s"] > 0 and table[s]["syncs"] == 0
-               for s in want)
+               for s in set(want) | set(NESTED[kind]))
 
 
 @pytest.mark.parametrize("opt_name", ["adagrad", "adam"])
